@@ -2,7 +2,7 @@
 
 Same shape as the reference's de-facto perf workload
 (`ppca/src/lib.rs:65-99`), but driven through PPCATrainer with a timing
-callback. On TPU each EM iteration is one fused device program (E-step
+callback. Each EM iteration is one fused device program (E-step
 posterior solves + M-step statistics + llk in a single pass over the data),
 so after the first compiled step the loop runs at device speed.
 """
@@ -14,6 +14,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import PPCAModel, PPCATrainer, TrainMetrics
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 D, K, N, ITERS = 200, 16, 100_000, 24
 if os.environ.get("PPCA_EXAMPLE_SMOKE"):  # CPU CI smoke (tests/test_examples.py)

@@ -10,6 +10,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import Dataset, PPCATrainer
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(13)
 n, d = 30, 5

@@ -12,6 +12,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import PPCAModel, PPCAMix
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(5)
 model = PPCAModel(

@@ -3,7 +3,7 @@
 Covers the reference capability of `examples/ppca_mixture.py` (training
 PPCAMix across several component counts and running the mixture verbs), but
 as a model-selection story: data come from three well-separated low-rank
-clusters and BIC should prefer M=3. On TPU the fused mixture EM computes all
+clusters and BIC should prefer M=3. The fused mixture EM computes all
 components' responsibilities and statistics in ONE pass over the data per
 iteration, so cost grows mildly with M.
 """
@@ -12,6 +12,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import Dataset, PPCAMix, PPCAMixTrainer, PPCAModel
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(3)
 D, K = 6, 2

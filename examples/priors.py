@@ -11,6 +11,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import PPCATrainer, Prior, PPCAModel
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(21)
 D, K, N = 8, 3, 25

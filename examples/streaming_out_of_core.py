@@ -1,6 +1,6 @@
 """Out-of-core training: the dataset never fits in device memory at once.
 
-TPU-native extra (no reference counterpart — the reference leaves chunked
+An extra with no reference counterpart (the reference leaves chunked
 workflows to the user via `Dataset.chunks`): EM sufficient statistics are
 additive, so chunks stream through the device one at a time.
 """
@@ -10,6 +10,9 @@ import os
 import numpy as np
 
 from ppca_rs_tpu import Dataset, StreamingPPCATrainer
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 CHUNK, N_CHUNKS = 20_000, 5
 if os.environ.get("PPCA_EXAMPLE_SMOKE"):  # CPU CI smoke (tests/test_examples.py)

@@ -4,8 +4,8 @@ Real-world missing data is rarely random — a handful of instrument
 configurations, survey versions or join shapes produce P distinct mask
 patterns with P << N.  The framework detects this automatically at first
 use (`Dataset.pattern_info`) and switches every verb to a pattern-table
-fast path: factorizations collapse from N per EM pass to P, measured ~3x
-faster end-to-end on TPU at P=32, D=1024, k=64.  Mixtures use M x P tables
+fast path: factorizations collapse from N per EM pass to P.  Mixtures use
+M x P tables
 the same way (a fully-observed dataset is the P=1 case).
 """
 
@@ -17,6 +17,9 @@ import numpy as np
 
 from ppca_rs_tpu import Dataset, PPCAMixTrainer, PPCAModel, PPCATrainer
 from ppca_rs_tpu.config import config
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(99)
 N, D, K = 100_000, 256, 16
@@ -58,8 +61,8 @@ def timed_train(ds, label):
 
 
 # At this demo size both paths are dominated by per-iteration dispatch; the
-# pattern path's advantage grows with D and k (bench_suite.py measures ~3.3x
-# at D=1024, k=64, N=1M on a v5e chip).
+# pattern path's advantage grows with D and k (bench_suite.py measures it
+# at D=1024, k=64, N=1M).
 model = timed_train(dataset, "pattern-path training (15 iters)")
 
 # The fast path must agree with the general path to f32 tolerance: retrain

@@ -2,7 +2,7 @@
 
 Covers the reference capability of `examples/toy_model.py`
 (train -> to_canonical -> singular values -> posterior CI readout), driven
-here as one jitted EM per iteration on the TPU: the whole E-step + M-step is
+here as one jitted EM per iteration on the device: the whole E-step + M-step is
 a single device program, so the Python loop below only sequences compiled
 steps.
 """
@@ -11,6 +11,9 @@ import jax
 import numpy as np
 
 from ppca_rs_tpu import PPCAModel, PPCATrainer
+from ppca_rs_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 rng = np.random.default_rng(7)
 

@@ -1,11 +1,12 @@
-"""ppca_rs_tpu — a TPU-native Probabilistic PCA framework.
+"""ppca_rs_tpu — a Probabilistic PCA framework for accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 viodotcom/ppca_rs: PPCA with per-entry missing-data masks, Bayesian priors,
 mixture models, per-sample weights, posterior uncertainty quantification,
-DataFrame adapters, and full serialization — redesigned for TPU hardware
-(mask-weighted dense algebra on the MXU, SPMD sharding over device meshes)
-rather than translated from the reference's Rust/rayon design.
+DataFrame adapters, and full serialization — redesigned for accelerators
+(mask-weighted dense algebra on large matmuls, a fused SPD kernel for the
+per-sample factorizations, SPMD sharding over device meshes) rather than
+translated from the reference's Rust/rayon design.
 """
 
 from .config import config

@@ -2,14 +2,16 @@
 
 The reference library (viodotcom/ppca_rs) has no config system — everything is
 plain function arguments (see SURVEY.md §5).  We keep that philosophy: the only
-things configured here are TPU-performance knobs that have no counterpart in the
-reference API and sensible defaults everywhere.
+things configured here are accelerator-performance knobs that have no
+counterpart in the reference API and sensible defaults everywhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -20,26 +22,29 @@ class Config:
     block_size: int = 8192
 
     #: jax.lax matmul precision for the hot contractions.  "auto" (default)
-    #: picks bf16-pass "default" matmuls (~1.5x faster end-to-end) when the
-    #: output dimension is >= 512 and full-f32 "highest" below.  The error is
-    #: dominated by cancellation in the llk quadratic form near convergence
-    #: (quad = |r|^2 - b^T M^-1 b with a small difference of large terms):
-    #: measured same-model llk deviation vs "highest" is ~1e-2 at D<=200,
-    #: ~2.5e-3 at D=1024 with small noise, ~1e-4 at D=1024 with sigma~1.
-    #: EM *convergence* is unaffected either way (the M-step is a fixed-point
-    #: ratio of weighted sums) — only reported llk/posterior values degrade.
-    #: Set "default"/"high"/"highest" to force; CPU f64 runs are unaffected.
+    #: picks "default" matmuls when the output dimension is >= 512 and full
+    #: f32 "highest" below.  On an NVIDIA GPU "default" runs f32 matmuls in
+    #: TF32.  The error is dominated by cancellation in the llk quadratic
+    #: form near convergence (quad = |r|^2 - b^T M^-1 b, a small difference
+    #: of large terms): measured same-model llk deviation of "auto" from
+    #: "highest" for a 10-iteration model at D=1024, k=64, N=1M, 50% missing
+    #: on an H100 80GB HBM3 (400 W power limit): 3.2e-5 and 9.6e-5 relative
+    #: in two runs.  EM *convergence* is unaffected either way (the M-step
+    #: is a fixed-point ratio of weighted sums) — only reported
+    #: llk/posterior values degrade.  Set "default"/"high"/"highest" to
+    #: force; CPU f64 runs are unaffected.
     matmul_precision: str = "auto"
 
-    #: Use the fused Pallas E-step kernel when running on TPU (falls back to
-    #: the pure-XLA path automatically elsewhere or when False).
+    #: Use the fused Pallas E-step kernel (ops/kernels.py) where the router
+    #: sends work to it (masked_linalg.spd_route: a GPU, f32, k <=
+    #: kernels.MAX_K); False keeps every factorization on XLA.
     use_pallas: bool = True
 
     #: Use the native C++ host-side packing extension when available.
     use_native: bool = True
 
     #: Compute the fused mixture EM's per-component residual norms from a
-    #: materialized (M, block, D) residual instead of the lane-major expanded
+    #: materialized (M, block, D) residual instead of the expanded
     #: quadratic |md0|^2 - 2 md0.dm + mask.dm^2.  The expanded form's f32
     #: cancellation error grows ~O(mean_separation^2 / sigma^2) relative
     #: (measured dev_sq ~7e-4 and llk ~1.6e-4 rel vs f64 at separation 300
@@ -50,32 +55,16 @@ class Config:
     #: unaffected either way).
     mix_exact_rnorm: bool = False
 
-    #: Contract the M-step S statistic against only the VALID block-wedge of
-    #: the kernel's want="fullt" second moments (row-blocks [r0:r1) of SM
-    #: hold valid entries in cols [:r1] only — the strict upper wedge beyond
-    #: the diagonal block is garbage em_finalize discards anyway).  Slab
-    #: dot_generals cut that contraction's flops and the SM HBM re-read to
-    #: ~0.6x at k=64.  Only affects the kernel-routed masked em_stats path;
-    #: numerics are exactly the tril+tril^T semantics either way.
-    #: Default ON since the round-4 v5e A/B (logs/round4_tpu_batch.log):
-    #: masked D=1024/k=64/N=1M marginal 3.54 -> 3.81M samples/s alone,
-    #: 4.09M combined with g_slab_inputs (+15.5%); patmix +13.9%; pat +1.2%;
-    #: the one soft spot is fused-mix k=32 (-2% alone, still +5% combined).
+    #: Build the pattern paths' per-sample outer products s s^T only on the
+    #: lower block-wedge em_finalize reads (masked_linalg._sm_slabs): ~0.55x
+    #: the outer-product work and temporary at k=64.  Numerics are exactly
+    #: the tril + tril^T semantics either way.
     s_slab_stats: bool = True
 
-    #: Feed the fused kernel's Gram input as wedge SLABS (kernels.g_slabs):
-    #: the kernel only reads the dim1 >= dim0 wedge of G, so the Gram
-    #: matmul computes and writes only that wedge (~0.6x flops + HBM write
-    #: at k=64) and the kernel DMAs each slab to its static A region.
-    #: Requires k % 8 == 0; only affects kernel-routed masked paths.
-    #: Default ON since the round-4 v5e A/B: masked marginal +6.6% alone,
-    #: +15.5% with s_slab_stats; fused mix k=32 +6.9%, k=64 +7.4% combined.
-    g_slab_inputs: bool = True
-
-    #: Route state sizes past the fused kernel's VMEM ceiling through the
-    #: blocked Schur-complement inverse (ops/block_spd.py): batched MXU
-    #: matmuls + Pallas base blocks, size-generic in k.  When False those
-    #: sizes fall back to XLA batched Cholesky (~15-50x slower on TPU).
+    #: For state sizes past the kernel's ceiling (kernels.MAX_K): route the
+    #: factorization through the blocked Schur-complement inverse
+    #: (ops/block_spd.py) instead of XLA's batched Cholesky.  The default is
+    #: the faster of the two at k=384 on an H100 (docs/DESIGN.md §2).
     use_blocked_large_k: bool = True
 
     #: Mask-pattern deduplication: when a dataset has P distinct mask
@@ -84,21 +73,16 @@ class Config:
     use_pattern_dedup: bool = True
 
     #: Pattern-path E-step restructure (ops/pattern_dedup.py): (a) compute
-    #: the posterior states via ONE (B, k) x (k, P*k) MXU matmul against the
+    #: the posterior states via ONE (B, k) x (k, P*k) matmul against the
     #: whole Sigma table + a per-row gather instead of gathering a (B, k^2)
-    #: per-sample Sigma (the gather materializes 16 KB/sample of HBM
-    #: traffic each way at k=64 — the dominant cost of the path); engages
+    #: per-sample Sigma (the gather materializes 16 KB/sample of device
+    #: memory traffic each way at k=64); engages
     #: when P * k is small enough that the (B, P, k) candidate temporary
     #: beats the gather.  (b) accumulate the mean-update correction
     #: pattern-grouped: mask^T (s w) == patterns^T (onehot^T (s w)), an
     #: exact sum reordering that removes a (D, B) x (B, k) matmul and a
     #: full mask re-read per block.  Both are algebraically exact.
-    #: Default ON from the round-4h v5e A/B (logs/r4h_arm*.log): single-
-    #: model pattern EM marginal 33.96 -> 17.20 ms/iter (P=32, D=1024,
-    #: k=64, 262k rows; 7.72 -> 15.24M samples/s, +97%), pattern-mixture
-    #: 241.5 -> 137.7 ms/iter (M=8, same shapes; +75%); neutral at P=128
-    #: where the candidates matmul hands back to the gather.  Opt out with
-    #: PPCA_RS_TPU_NO_PAT_GROUPED.
+    #: Opt out with PPCA_RS_TPU_NO_PAT_GROUPED.
     pat_grouped_estep: bool = True
 
     #: Sorted-segment pattern EM (ops/pattern_dedup.em_stats_sorted): rows
@@ -108,24 +92,16 @@ class Config:
     #: runs per-segment matmuls: states cost 2k^2 flops/sample instead of
     #: the candidates matmul's 2Pk^2, and the per-pattern outer-product
     #: statistic is a plain segment Gram (2k^2) instead of the one-hot
-    #: contraction (2*q*128 effective).  Both pattern paths measured
-    #: MXU-flop-bound (see the seg_gram dead end in docs/DESIGN.md), so
-    #: this targets exactly the binding constraint.  Costs: one sorted
-    #: data copy in HBM (gated by pat_sorted_max_bytes) and a retrace per
-    #: dataset (segment offsets are compile-time constants).
-    #: Default ON from the round-5 v5e A/B (logs/r5_arm01-06.log):
-    #: single-model pattern EM marginal 17.37 -> 4.09 ms/iter (P=32,
-    #: D=1024, k=64, 262k rows; 15.09 -> 64.2M samples/s, 4.2x),
-    #: pattern-mixture 137.7 (r4h grouped control; the r5 control arm hit
-    #: its compile timeout) -> 17.17 ms/iter (M=8, same shapes; 8.0x),
-    #: and P=128 single-model 36.60 -> 7.72 ms (4.7x, compile 45.7 s —
-    #: the unrolled segment program scales fine to P=128).  Opt out with
+    #: contraction (2*q*P).  Costs: one sorted data copy in device memory
+    #: (gated by pat_sorted_max_bytes) and a retrace per dataset (segment
+    #: offsets are compile-time constants).  Opt out with
     #: PPCA_RS_TPU_NO_PAT_SORTED.
     pat_sorted_estep: bool = True
 
     #: Do not build the sorted-by-pattern data copy past this size (it
-    #: doubles the dataset's HBM footprint while training).
-    pat_sorted_max_bytes: int = 4 << 30
+    #: doubles the dataset's device footprint while training).  None: a
+    #: quarter of the device's memory (see :meth:`sorted_copy_bytes`).
+    pat_sorted_max_bytes: Optional[int] = None
 
     #: Upper bound on P for the sorted-segment path: each pattern adds an
     #: unrolled segment scan to the compiled EM step, so very fragmented
@@ -137,11 +113,8 @@ class Config:
     #: stop amortizing, and the O(P)-segment unrolled program explodes
     #: compile size (a ~200-pattern/2000-row random-mask dataset produced a
     #: program big enough to SEGFAULT the XLA:CPU compiler under suite
-    #: memory pressure — test_bf16_storage_pipeline, round 5).  The v5e
-    #: A/B's smallest measured winning config is 2048 rows/segment (P=128
-    #: at 262k rows, 4.7x); 512 keeps a 4x safety margin while blocking
-    #: the fragmented-mask regime.  Below the gate the grouped pattern
-    #: path (pat_grouped_estep) carries the workload.
+    #: memory pressure).  Below the gate the grouped pattern path
+    #: (pat_grouped_estep) carries the workload.
     pat_sorted_min_rows: int = 512
 
     #: Upper bound on P for the dedup path (table memory is P * k^2 and the
@@ -151,6 +124,24 @@ class Config:
     #: Require P * pattern_min_ratio <= N before switching to the dedup path
     #: (below that the general masked path wins).
     pattern_min_ratio: int = 4
+
+    def sorted_copy_bytes(self) -> int:
+        """The sorted-copy size limit in force (pat_sorted_max_bytes)."""
+        if self.pat_sorted_max_bytes is not None:
+            return self.pat_sorted_max_bytes
+        return device_bytes() // 4
+
+
+@functools.lru_cache(maxsize=None)
+def device_bytes() -> int:
+    """Memory JAX may allocate on the default device (its
+    ``memory_stats()["bytes_limit"]``), or 16 GiB where the backend does not
+    report one (the CPU).  The memory bounds derived from it keep their
+    proportions on every device."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats() or {}
+    return int(stats.get("bytes_limit", 16 << 30))
 
 
 config = Config()
@@ -168,14 +159,8 @@ if _env_flag("PPCA_RS_TPU_NO_NATIVE"):
     config.use_native = False
 if _env_flag("PPCA_RS_TPU_NO_BLOCKED_LARGE_K"):
     config.use_blocked_large_k = False
-if _env_flag("PPCA_RS_TPU_S_SLAB_STATS"):
-    config.s_slab_stats = True
-if _env_flag("PPCA_RS_TPU_G_SLAB_INPUTS"):
-    config.g_slab_inputs = True
 if _env_flag("PPCA_RS_TPU_NO_S_SLAB_STATS"):
     config.s_slab_stats = False
-if _env_flag("PPCA_RS_TPU_NO_G_SLAB_INPUTS"):
-    config.g_slab_inputs = False
 if _env_flag("PPCA_RS_TPU_NO_PAT_GROUPED"):
     config.pat_grouped_estep = False
 if _env_flag("PPCA_RS_TPU_PAT_SORTED"):
@@ -194,18 +179,20 @@ def block_size_for(n: int, k: int = 0, m: int = 1) -> int:
     datasets don't pay for an 8k-row pad.
 
     When the state size ``k`` is given and exceeds the fused kernel's
-    "full" ceiling (the blocked Schur-inverse regime, ops/block_spd.py),
-    the block is also shrunk so the ~4 live (m * block, k, k) f32
-    temporaries (M, M^{-1}, Sigma, SM) stay within ~2 GiB — at k = 512 an
-    8192-row block would otherwise hold 8 GiB PER temporary.  Mixtures
-    pass ``m`` = number of components: their per-block problems stack all
-    M components, so the bound must count M * block rows."""
+    ceiling (kernels.MAX_K: the blocked or XLA large-k regime), the block is
+    also shrunk so the ~4 live (m * block, k, k) f32 temporaries (M,
+    M^{-1}, Sigma, SM) stay within an eighth of the device's memory (2 GiB
+    of 16 GiB) — at k = 512 an 8192-row block would otherwise hold 8 GiB
+    PER temporary.  Mixtures pass ``m`` = number of components: their
+    per-block problems stack all M components, so the bound must count
+    M * block rows."""
     b = config.block_size
     if k:
         from .ops import kernels  # lazy: config must import before ops
 
-        if k > kernels.max_k("full"):
-            while b > 128 and max(1, m) * b * k * k * 16 > (2 << 30):
+        if k > kernels.MAX_K:
+            limit = device_bytes() // 8
+            while b > 128 and max(1, m) * b * k * k * 16 > limit:
                 b //= 2
     while b >= 2 * max(n, 1):
         b //= 2

@@ -406,9 +406,7 @@ class PPCAMix:
         (d_obs - k) noise term, padded states are 0, padded posterior
         covariance is the prior's I (sliced away on readout), the M-step's
         cross-moment rows for padded columns are 0 so the solve returns 0,
-        and tr(G Sigma) gets no padded contribution.  This is the same
-        absorption the kernel already uses for its k->k8 sublane padding
-        (ops/kernels.py)."""
+        and tr(G Sigma) gets no padded contribution."""
         kmax = max(m.state_size for m in self._models)
         return (
             jnp.stack([
@@ -768,7 +766,7 @@ class PPCAMix:
         """``n_iters`` fused mixture (MAP-)EM iterations in ONE compiled
         program (lax.scan over the parameters — no per-iteration dispatch
         or host sync).  Returns ``(mix, llks)`` with ``llks[i]`` the llk of
-        the mixture *before* iteration ``i``.  TPU-native extra — the
+        the mixture *before* iteration ``i``.  An extra — the
         reference iterates one step at a time."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")

@@ -1,4 +1,4 @@
-"""Probabilistic PCA with missing data — TPU-native single model.
+"""Probabilistic PCA with missing data — the single model.
 
 Rebuild of `ppca/src/ppca_model.rs` (PPCAModel / InferredMasked /
 PosteriorSampler) on the mask-weighted dense algebra in
@@ -182,7 +182,7 @@ def _smoothed_from_states_jit(C, mean, states):
 @jax.jit
 def _smoothed_cov_diag_jit(C, sigma, covs):
     # diag(C Sigma C^T)[d] = sum_{kl} C[d,k] Sigma[k,l] C[d,l]
-    #                      = (Sigma_flat @ CC_flat^T)[n, d]; one MXU matmul.
+    #                      = (Sigma_flat @ CC_flat^T)[n, d]; one matmul.
     CC = ml.outer_flat(C)
     n, k, _ = covs.shape
     return covs.reshape(n, k * k) @ CC.T + sigma * sigma
@@ -821,7 +821,7 @@ class PPCAModel:
         every iteration still comes back for free).  Returns
         ``(model, llks)`` where ``llks[i]`` is the log-likelihood of the
         model *before* iteration ``i`` (same convention as the trainers).
-        TPU-native extra — the reference iterates one step at a time."""
+        An extra — the reference iterates one step at a time."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
         if n_iters <= 0:
@@ -880,7 +880,7 @@ class InferredMasked:
         return list(np.asarray(self._covariances))
 
     def covariances_array(self) -> np.ndarray:
-        """(N, k, k) stacked covariances — TPU-native extra."""
+        """(N, k, k) stacked covariances — an extra over the reference."""
         return np.asarray(self._covariances)
 
     def second_moments(self) -> List[np.ndarray]:
@@ -890,7 +890,7 @@ class InferredMasked:
         return list(np.asarray(_second_moments_jit(self._states, self._covariances)))
 
     def second_moments_array(self) -> np.ndarray:
-        """(N, k, k) stacked second moments — TPU-native extra."""
+        """(N, k, k) stacked second moments — an extra over the reference."""
         return np.asarray(_second_moments_jit(self._states, self._covariances))
 
     def smoothed(self, model: PPCAModel) -> Dataset:
@@ -916,7 +916,7 @@ class InferredMasked:
 
     def smoothed_covariances_diagonal(self, model: PPCAModel) -> Dataset:
         """Diagonal-only smoothed covariance via the row-dot trick
-        (`ppca_model.rs:485-508`), one matmul on the MXU."""
+        (`ppca_model.rs:485-508`), one matmul."""
         with _precision(self._model.output_size):
             diag = _smoothed_cov_diag_jit(model._transform, model._isotropic_noise, self._covariances)
         return Dataset.unmasked(diag)
@@ -943,23 +943,8 @@ class InferredMasked:
 
     def posterior_sampler(self) -> "PosteriorSampler":
         """Cholesky-factor the posterior covariances for repeated sampling
-        (`ppca_model.rs:581-592`).
-
-        On TPU the (N, k, k) batch factors through the fused SPD kernel
-        (ops/kernels.spd_chol) — XLA's batched ``cholesky`` is ~50x slower
-        at production N."""
-        from ..ops import kernels
-        from ..config import config
-
-        covs = self._covariances
-        if (config.use_pallas and jax.default_backend() == "tpu"
-                and covs.dtype == jnp.float32
-                and kernels.supported(covs.shape[-1], kernels.LANE, covs.dtype)):
-            chol = jnp.transpose(
-                kernels.spd_chol(jnp.transpose(covs, (1, 2, 0))), (2, 0, 1)
-            )
-        else:
-            chol = jnp.linalg.cholesky(covs)
+        (`ppca_model.rs:581-592`)."""
+        chol = jnp.linalg.cholesky(self._covariances)
         if not bool(jnp.all(jnp.isfinite(chol))):
             raise ValueError("Cholesky decomposition failed: posterior covariance not PD")
         return PosteriorSampler(self._model, self._states, chol)

@@ -1,6 +1,6 @@
 // Host-side packing kernels for ppca_rs_tpu.
 //
-// TPU-native equivalent of the reference's native data layer
+// Equivalent of the reference's native data layer
 // (ppca/src/dataset.rs MaskedSample::mask_non_finite and the DataFrame
 // adapter's dense-array population): the device handles all math via
 // XLA/Pallas, so the native layer's job is to get host data into dense

@@ -1,7 +1,7 @@
 """Host-side data packing — native C++ fast path with numpy fallback.
 
-The reference's native (Rust) layer exists for compute speed; on TPU that role
-is filled by XLA/Pallas, and the host-side residue is data packing: turning
+The reference's native (Rust) layer exists for compute speed; here that role
+is filled by XLA and the Pallas kernel on the accelerator, and the host-side residue is data packing: turning
 user numpy arrays / long-format frames into the dense (values, mask) pair the
 device wants.  For large datasets that packing is memory-bandwidth-bound in
 numpy (multiple passes + temporaries), so we provide a multithreaded C++

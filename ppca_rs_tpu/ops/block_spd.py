@@ -1,29 +1,21 @@
-"""Size-generic batched SPD inversion: blocked Schur complements on the MXU.
+"""Size-generic batched SPD inversion: blocked Schur complements on matmuls.
 
 The reference's per-sample algebra is unbounded in the state size k
 (`ppca/src/output_covariance.rs:72-121` gathers observed rows and solves
-whatever k it is given).  On TPU the fused Pallas E-step kernel
-(ops/kernels.py) covers k up to its VMEM ceiling (264 for the full
-variant at the default tile); past that, XLA's batched Cholesky / solve
-on (B, k, k) operands collapses to ~GFLOP/s (measured 347 ms for ONE
-(8192, 256, 256) batched factor on a v5e) — a 15-50x cliff.
-
-This module keeps large-k inference MXU-bound instead.  The batched SPD
-inverse and log-determinant of ``M = sigma^2 I + C^T diag(m) C`` are
-computed by recursive 2x2 Schur-complement blocking::
+whatever k it is given).  Past the fused kernel's ceiling
+(ops/kernels.MAX_K) the E-step needs a route whose cost grows with large
+batched matmuls rather than with a batched factorization of big matrices.
+The batched SPD inverse and log-determinant of
+``M = sigma^2 I + C^T diag(m) C`` are computed here by recursive 2x2
+Schur-complement blocking::
 
     M = [A  B ]        M^{-1} = [ Ai + W Si W^T   -W Si ]
         [B^T C ]                [   -(W Si)^T       Si  ]
 
     with  W = Ai B,   S = C - B^T W  (the Schur complement),  Si = S^{-1}
 
-where every off-base operation is one large batched MXU matmul (measured
-11-36 TFLOP/s on v5e at these shapes, 5.8-16.7 TFLOP/s at the "highest"
-precision used here — see tools/schur_spike.py) and the base-case
-(B, <=256, <=256) inversions run through the fused Pallas kernel's
-``want="infer"`` variant (``Sigma = sigma^2 M^{-1}`` with ``sigma^2 = 1``
-so the output IS the inverse, and the kernel's llk output folds back to
-``logdet M`` exactly — see ``_base_inv_logdet_kernel``).
+where every off-base operation is one large batched matmul and the
+(B, <=BASE, <=BASE) base problems go through batched Cholesky.
 
 Numerical notes:
 
@@ -31,38 +23,29 @@ Numerical notes:
   ``lambda_min(S) >= lambda_min(M)`` (S is the inverse of a principal
   submatrix of M^{-1}), so with ``M = G + sigma^2 I`` the base problems
   stay at least as well-conditioned as M itself at every level.
-* The recursion's matmuls run at ``precision="highest"`` (full-f32
-  three-pass): the Schur update ``C - B^T W`` is a genuine cancellation
-  and bf16-pass "default" precision would feed its error through every
-  deeper level.  The factor-of-~2 matmul cost is still orders of
-  magnitude from the XLA-batched-Cholesky cliff this path replaces.
+* The recursion's matmuls run at ``precision="highest"`` (full f32): the
+  Schur update ``C - B^T W`` is a genuine cancellation, and reduced
+  precision would feed its error through every deeper level.
 * The flop count is ~2 B k^3 for the inverse (vs ~1/3 B k^3 for a
-  factorization alone), but it lands on the MXU; the E-step at these k
+  factorization alone), but it is matmul work; the E-step at these k
   needs the full inverse anyway (the posterior second moment
   ``s s^T + sigma^2 M^{-1}`` is a dense (k, k) output per sample).
 
-Routing lives in masked_linalg (``_use_blocked`` + ``block_posterior``);
-this module is pure linear algebra with no PPCA knowledge beyond the
-eigenvalue-floor convention above.
+Routing lives in masked_linalg (``spd_route``); this module is pure linear
+algebra with no PPCA knowledge beyond the eigenvalue-floor convention
+above.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 
-LN_2PI = 1.8378770664093453
-
-#: Base-case size: one lane-tile Pallas inversion.  Must stay within the
-#: fused kernel's "infer" ceiling (kernels.max_k("infer"), 264 at the
-#: default tile) and a multiple of 8 (sublane alignment).
+#: Base-case size: problems up to this width are factored directly.
 BASE = 256
-
-LANE = 128
 
 
 def mm_hp(a, b):
@@ -81,9 +64,7 @@ def _t(a):
 
 
 def base_inv_logdet_xla(M: jax.Array):
-    """Cholesky-based base case (CPU / fallback): (B, p, p) -> inverse and
-    log-determinant.  Fine on CPU (LAPACK); the TPU path uses the Pallas
-    kernel instead."""
+    """Cholesky-based base case: (B, p, p) -> inverse and log-determinant."""
     from jax.scipy.linalg import cho_solve
 
     L = jnp.linalg.cholesky(M)
@@ -95,52 +76,8 @@ def base_inv_logdet_xla(M: jax.Array):
     return Minv, logdet
 
 
-def base_inv_logdet_kernel(M: jax.Array, *, interpret: bool = False):
-    """Pallas base case: invert (B, p, p) SPD matrices through the fused
-    E-step kernel's ``want="infer"`` variant.
-
-    The kernel factors ``G + sigma^2 I`` and emits ``Sigma = sigma^2
-    M^{-1}``; feeding ``G = M - I`` with ``sigma^2 = 1`` makes the output
-    exactly ``M^{-1}`` (G need not be PSD — only the assembled M is
-    factored).  The log-determinant folds out of the kernel's llk output:
-    with ``b = 0`` and ``rnorm = 0`` the quadratic term vanishes, and with
-    ``d_obs = p`` the ``log(sigma^2) (d_obs - k)`` term is 0, leaving
-    ``llk = -0.5 (logdet M + p ln 2pi)``.
-
-    The batch is padded to a LANE multiple with identity matrices
-    (inverse I, logdet 0) exactly as ``spd_chol`` does.
-    """
-    from . import kernels
-
-    B, p, _ = M.shape
-    dtype = M.dtype
-    Bp = -(-B // LANE) * LANE
-    G3 = jnp.transpose(M, (1, 2, 0))
-    eye_col = (
-        lax.broadcasted_iota(jnp.int32, (p, p, 1), 0)
-        == lax.broadcasted_iota(jnp.int32, (p, p, 1), 1)
-    ).astype(dtype)
-    if Bp != B:
-        G3 = jnp.pad(G3, ((0, 0), (0, 0), (0, Bp - B)))
-        # identity pad: after the global -I below the pad lanes hold G = 0,
-        # so the kernel factors exactly I (inverse I, logdet 0).
-        pad_sel = jnp.zeros((p, p, Bp), dtype).at[:, :, B:].set(1.0)
-        G3 = G3 + pad_sel * eye_col
-    G3 = G3 - eye_col  # G = M - I, so G + sigma^2 I == M with sigma = 1
-    zeros = jnp.zeros((1, Bp), dtype)
-    d_obs = jnp.full((1, Bp), float(p), dtype)
-    kw = {"interpret": True} if interpret else {}
-    _, Sig3, llk, _ = kernels.spd_estep(
-        jnp.ones((), dtype), G3, jnp.zeros((p, Bp), dtype), zeros, d_obs,
-        want="infer", **kw
-    )
-    Minv = jnp.transpose(Sig3[:, :, :B], (2, 0, 1))
-    logdet = (-2.0 * llk[0, :B]) - LN_2PI * float(p)
-    return Minv, logdet
-
-
 def _split(p: int) -> int:
-    """Leading block size: half of p rounded up to a sublane multiple."""
+    """Leading block size: half of p rounded up to a multiple of 8."""
     return 8 * (-(-p // 16))
 
 
@@ -166,13 +103,16 @@ def _inv_logdet(M, base_fn: Callable, base: int):
 
 def solve_rows(k: int) -> int:
     """Batch-chunk size for :func:`solve_psd`: the recursion holds ~6 live
-    (rows, k, k) f32 arrays, so cap each at ~256 MB."""
-    return max(LANE, (1 << 28) // max(1, k * k * 4))
+    (rows, k, k) f32 arrays, so cap each at 1/64 of the device's memory
+    (256 MB on a 16 GiB device)."""
+    from ..config import device_bytes
+
+    return max(128, (device_bytes() // 64) // max(1, k * k * 4))
 
 
 def solve_psd(S_sq: jax.Array, rhs: jax.Array, lam) -> jax.Array:
     """Batched ``(S[d] + lam I) x = rhs[d]`` through the blocked inverse —
-    the shared M-step row solve for state sizes past the kernel ceiling
+    the M-step row solve on the blocked route
     (masked_linalg.em_finalize / mix_fused.mix_em_finalize).  ``S_sq`` is
     (B, k, k) symmetric PSD, ``rhs`` (B, k).  A singular row (e.g. an empty
     dimension with lam = 0) yields non-finite entries for that row exactly
@@ -210,21 +150,10 @@ def inv_logdet(
     *,
     base: Optional[int] = None,
     base_fn: Optional[Callable] = None,
-    interpret: bool = False,
 ):
     """Batched SPD inverse + log-determinant, (B, k, k) -> ((B, k, k), (B,)).
 
-    ``base_fn`` overrides the base case (tests); otherwise the Pallas
-    kernel serves TPU (or ``interpret=True``) and batched Cholesky serves
-    CPU/GPU.  ``base`` overrides the base-case size (module BASE).
+    ``base_fn`` overrides the base case (tests; default batched Cholesky)
+    and ``base`` the base-case size (module BASE).
     """
-    if base is None:
-        base = BASE
-    if base_fn is None:
-        if interpret or jax.default_backend() == "tpu":
-            base_fn = functools.partial(
-                base_inv_logdet_kernel, interpret=interpret
-            )
-        else:
-            base_fn = base_inv_logdet_xla
-    return _inv_logdet(M, base_fn, base)
+    return _inv_logdet(M, base_fn or base_inv_logdet_xla, base or BASE)

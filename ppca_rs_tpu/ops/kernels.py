@@ -1,69 +1,54 @@
-"""Pallas TPU kernels for the masked-PPCA E-step.
+"""Fused batched SPD E-step kernel (Pallas, Triton route, NVIDIA GPUs).
 
-Why this exists: the E-step's per-sample k x k SPD factorization+solves are
-the one part of the EM that XLA:TPU runs badly — batched `cholesky` /
-`triangular_solve` on (8192, 64, 64) operands execute at a few GFLOP/s
-(measured ~70 ms per 8k-sample block on v5e, vs ~3 ms for ALL the big MXU
-matmuls of the same block combined).  The fix is a single fused kernel that
-lays the batch out on the *lane* dimension — shape (k, k, B) with B on the
-128-wide lanes — so every scalar step of the factorization is an elementwise
-VPU op over 128 samples at once.
+Per sample, the masked-PPCA E-step factors ``M = sigma^2 I + G`` (G the
+masked Gram ``C^T diag(m) C``) and derives everything downstream from that
+one factorization: the posterior state ``s = M^{-1} b``, the log-likelihood
+(log-determinant plus quadratic form), the noise-update term
+``sq = tr(G Sigma)`` and the second moment ``SM = s s^T + sigma^2 M^{-1}``
+(or the covariance ``Sigma = sigma^2 M^{-1}`` itself).  XLA runs this as a
+batched Cholesky, two batched triangular solves and a handful of
+elementwise passes, writing ``M``, ``L`` and ``M^{-1}`` to device memory
+between them; the kernel reads ``G`` once and writes only what the caller
+asked for.
 
-The factorization, the inverse and every downstream quantity come out of ONE
-loop over the k columns.  At column j (with A the working copy of
-``M = sigma^2 I + G`` and Res the working residuals of ``L W = I``):
+Layout: sample-major.  Each program owns ``S`` samples whose (kp, kp)
+working matrices live in registers; ``kp`` is ``k`` rounded up to a power
+of two (Triton block shapes must be) and ``S * kp * kp`` is about one
+4096-element tile, so small state sizes pack several samples per program.
 
-    lcol_j = A[:,j] / sqrt(A[j,j])        # column j of L (Cholesky)
-    A     -= lcol_j lcol_j^T              # right-looking rank-1 update
-    wrow_j = Res[j] / L_jj                # row j of W = L^{-1}
-    Res   -= lcol_j wrow_j^T              # rank-1 update
-    logdet += log A[j,j]
-    s      += wrow_j (wrow_j . b)         # s = M^{-1} b   (M^{-1} = W^T W)
-    M^{-1} += wrow_j wrow_j^T             # only for the "full" variant
+One Gauss-Jordan loop over the k columns does the whole factorization.
+At column j, with A the working copy of M, v of b and R of I::
 
-Neither L nor W is ever materialized.  Three variants are generated from one
-template via the static ``want`` flag — ``"llk"`` does only the Cholesky +
-forward substitution (llks / responsibilities passes), ``"states"`` adds the
-posterior means (smooth / extrapolate), and ``"full"`` also emits second
-moments ``SM = s s^T + sigma^2 M^{-1}`` and the noise-update term
-``sq = tr(G Sigma)`` via the trace identity
-``<G, M^{-1}> = k - sigma^2 tr(M^{-1})`` (EM, infer).
+    col_j  = A[:, j];  d_j = A[j, j]       # pivot = Cholesky's L_jj^2
+    f      = col_j / d_j, with f_j = 0
+    A     -= f row_j^T                     # row_j = col_j below the pivot
+    v     -= f v_j                         # ends as D M^{-1} b
+    R     -= f R[j]^T                      # ends as D M^{-1} ("fullt"/"infer")
+    logdet += log d_j
 
-All loops are `fori_loop`s touching (k, k, 128) tiles with leading-axis
-dynamic indexing only (no cross-lane shuffles, no sublane-dynamic writes).
-The G input streams from HBM with a manually double-buffered DMA (overlapped
-with the previous tile's compute); the SM output remains a pipelined block.
+with D = diag(d).  Row j needs no second extraction: left of the pivot it
+is zero, and the trailing block is the symmetric Schur complement, so it
+equals the lower part of column j.  Column and row extraction are masked
+reductions (no dynamic register indexing), which is what Triton lowers.
+The states are ``s = v / d``, the quadratic form ``b^T M^{-1} b = b . s``,
+and the trace identity ``tr(G M^{-1}) = k - sigma^2 tr(M^{-1})`` gives
+``sq`` without keeping G.  An SPD matrix needs no pivoting: the pivots
+are those of its Cholesky factorization.
 
-Columns are processed in rank-2 pairs (one read-modify-write pass over each
-big buffer per pair, ~8% end-to-end). A panel-blocked (rank-8) variant and a
-rank-4 variant were tried and measured *slower*
-(7.9 vs 4.9 ms per 8k block): the kernel is VPU-compute bound, not
-VMEM-bandwidth bound, and short serial (k, T) panel ops pipeline worse than
-the big rank-1 (k, k, T) updates.
+Padding: padded state dims get a unit diagonal and zero coupling, so they
+factor to themselves (log 1 = 0, zero state) and the column loop stops at
+the real ``k``; padded samples are identity matrices.  A zero noise level
+is accepted (the M-step row solve ``(S + lam I) x = cross`` runs through
+``want="states"`` with ``sigma^2 = lam``), since the padded diagonal never
+depends on it.
 
-Because the kernel is VPU-compute bound, the round-3 lever is *doing fewer
-FMAs*, not reorganizing traffic: the live region of each rank-2 update is a
-staircase, not the full k x k square.  At column j the Cholesky update only
-changes trailing rows/cols >= j (lcol_j is zero above j), the Res update only
-changes rows >= j and cols <= j (wrow_j is a row of a lower-triangular
-inverse), and the SM accumulation only touches the leading (j+1) x (j+1)
-block.  The column loop is therefore split into static PANEL-sized segments
-(Python-level, so the slice bounds are compile-time constants aligned to the
-8-sublane tiling) and every big update writes only its statically-known live
-slab: rows [j0:] x cols [j0:] for A, rows [j0:] x cols [:j1] for Res, and
-[:j1] x [:j1] for SM.  For k=64 with 8-wide panels this cuts the big-update
-FMA count to 0.40 / 0.27 / 0.40 of the full-square version (~2.6x fewer VPU
-flops) with per-column logic unchanged — measured 2.14 ms vs 4.5 ms per
-(8192, k=64) block on v5e (1.84x at PANEL=16, 2.1x at PANEL=8).
-
-On top of the staircase, the A update is further restricted to its upper
-*wedge* (only entries with col >= row are ever read back by chol_col) via
-TRI_RB-row blocks — see ``_a_update``.  Measured at k=64: llk 1.10 -> 0.74
-ms (A dominates there), full 2.14 -> 2.07 ms (Res/SM dominate).
+Variants (static ``want``): ``"llk"`` -> llk; ``"states"`` -> (s, llk);
+``"fullt"`` -> (s, SM, llk, sq); ``"infer"`` -> (s, Sigma, llk).
 
 Equivalent to (and tested against) the XLA path in
-`ops/masked_linalg.block_posterior` + `block_covariances` + `block_llk`,
-which mirrors `ppca/src/output_covariance.rs` / `ppca_model.rs:195-208`.
+``ops/masked_linalg.block_posterior`` + ``block_covariances`` +
+``block_llk``, which mirrors `ppca/src/output_covariance.rs` /
+`ppca_model.rs:195-208`.
 """
 
 from __future__ import annotations
@@ -74,687 +59,184 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 LN_2PI = 1.8378770664093453
 
-LANE = 128
-# VMEM sizing: the "full" variant's comfortable configuration holds A
-# double-buffered (2x) + Res + the pipelined SM output (2x) = ~5 k^2 LANE
-# f32 in VMEM.  The v5e has 128 MB of physical VMEM; the default Mosaic
-# limit is ~16 MB (which capped k at 72 in round 1) and is raised per-call
-# via CompilerParams(vmem_limit_bytes) below (clamped to the 128 MB
-# physical capacity).
-#
-# Beyond k = 192 the comfortable configuration no longer fits, and falling
-# back to XLA's batched Cholesky is a silent 15-50x cliff.  A LEAN
-# configuration extends the ceiling: A single-buffered (the G prefetch
-# overlap is worth ~2% at big k, where compute is ~k^3 and the DMA ~k^2),
-# and the SM output staged in ONE VMEM scratch DMA'd to HBM manually at
-# tile end instead of a double-buffered pipeline block.  That is 3 big
-# buffers for full/fullt/infer (k <= 256), 2 for states (k <= ~312) and
-# 1 for llk/chol (k <= ~440) — see _kernel_config / max_k().  Past those,
-# supported() is False and masked_linalg warns loudly before taking the
-# XLA fallback.
-MAX_K = 192  # ceiling of the comfortable (double-buffered, pipelined) config
+#: Largest state size the router sends to the kernel (larger k still
+#: computes correctly, only slower).  The fullt/infer variants hold two
+#: (kp, kp) f32 matrices per sample in registers: 8K values at kp = 64
+#: (64 per thread at 4 warps), 32K at kp = 128, where one program fills the
+#: 64K-register file of an SM.  Measured on an H100 at B = 8192, k = 128
+#: ran slower than XLA's batched Cholesky route and k = 64 faster
+#: (docs/DESIGN.md §2).
+MAX_K = 64
 
-# VMEM budget used to size configurations: physical 128 MB minus headroom
-# for Mosaic's stack temporaries and alignment overhead.
-VMEM_BUDGET = 108 * 1024 * 1024
+#: Elements of one working matrix per program (S * kp * kp).
+_TILE = 4096
 
-PANEL = 8  # staircase panel width (multiple of 8; 8 beat 16: 2.14 vs 2.45 ms/8k at k=64)
-
-WANTS = ("llk", "states", "full", "infer", "chol", "fullt")
-# "infer" = same loop as "full" but the second output is the posterior
-# covariance Sigma = sigma^2 M^{-1} itself (not SM = s s^T + Sigma): callers
-# that need per-sample covariances get them without the SM - s s^T round trip,
-# whose f32 cancellation can break PSD-ness for well-observed samples.
-# "chol" = batched Cholesky factors of sigma^2 I + G themselves (the columns
-# the loop computes anyway, written out instead of discarded): the backend
-# for posterior samplers, where XLA's batched cholesky on (B, k, k) operands
-# is ~50x slower.  Use the spd_chol() wrapper for plain SPD batches.
-# "fullt" = "full" with the SM accumulation restricted to its lower wedge
-# (SM is symmetric; only entries with row >= col are valid, the rest hold
-# s_i s_j garbage).  For consumers that only contract SM linearly and can
-# symmetrize the SUM afterwards (the EM S-statistic: em_finalize does
-# tril + tril^T), this cuts the SM update FMAs ~2x.
+WANTS = ("llk", "states", "fullt", "infer")
 
 
-# Row-block widths for the upper-wedge A update, per variant.  The llk
-# variant is A-dominated, so finer blocks (more flop savings) win: 0.74 ms
-# at rb=8 vs 0.99 at rb=16 per (8192, k=64) block.  The full variant is
-# Res/SM-dominated and prefers fewer, bigger A ops: 2.07 ms at rb=16 vs
-# 2.16 at rb=8 (2.14 with no wedge at all).
-TRI_RB_LLK = 8
-TRI_RB_MAIN = 16
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _a_update(A_scr, cur, j0, k, l0, l1, rb):
-    """Cholesky trailing update restricted to the upper wedge.
-
-    ``chol_col(j)`` only ever reads entries (j, c) with c >= j, so A only
-    needs its dim1 >= dim0 wedge maintained; entries below go stale and are
-    never read.  Updating in rb-row blocks with cols [r0:] halves the
-    A-update FMAs again on top of the staircase slicing.
-    """
-    for r0 in range(j0, k, rb):
-        r1 = min(r0 + rb, k)
-        l0r, l1r = l0[r0:r1], l1[r0:r1]
-        l0c, l1c = l0[r0:], l1[r0:]
-        A_scr[cur, r0:r1, r0:] = A_scr[cur, r0:r1, r0:] - (
-            jnp.expand_dims(l0r, 1) * jnp.expand_dims(l0c, 0)
-            + jnp.expand_dims(l1r, 1) * jnp.expand_dims(l1c, 0)
-        )
+def padded_k(k: int) -> int:
+    """The kernel's working width for state size ``k``."""
+    return max(8, _pow2(k))
 
 
-def g_slabs(k: int, rb: int = TRI_RB_MAIN):
-    """Row-block slabs [(r0, r1)] of the (k, k) Gram input that the kernel
-    actually READS: ``chol_col(j)`` touches only entries (j, c) with c >= j
-    and ``_a_update`` maintains only that upper wedge, so row-block
-    [r0, r1) needs cols [r0:] only.  Callers may pass G as a tuple of
-    (r1-r0, k-r0, B) slabs (see ``spd_estep``) and skip ever computing or
-    writing the dead lower wedge (~0.6x the Gram matmul flops and HBM
-    write at k=64)."""
-    return [(r0, min(r0 + rb, k)) for r0 in range(0, k, rb)]
+def samples_per_program(k: int, batch: int) -> int:
+    """Samples one program owns: about one ``_TILE`` of working matrix,
+    never more than the (power-of-two rounded) batch itself."""
+    kp = padded_k(k)
+    return max(1, min(_TILE // (kp * kp), _pow2(batch)))
 
 
-def _panels(k: int, width: int = PANEL):
-    """Static staircase segments [(j0, j1), ...] covering the k columns.
-
-    ``k`` is a multiple of 8 (spd_estep pads), so every boundary is
-    8-sublane aligned and every segment has an even number of columns
-    (rank-2 pairs).  The final segment may be 8 wide when k % 16 == 8.
-    """
-    panels, j0 = [], 0
-    while j0 < k:
-        w = width if k - j0 >= width else k - j0
-        panels.append((j0, j0 + w))
-        j0 += w
-    return panels
+def _num_warps(k: int, batch: int) -> int:
+    """4 warps up to one 4096-element tile, 8 above (measured on an H100:
+    4 beat 8 at k = 64, 8 beat 16 and 32 at k = 128)."""
+    return 4 if samples_per_program(k, batch) * padded_k(k) ** 2 <= _TILE else 8
 
 
-def _make_kernel(want: str, single_buf: bool = False, sm_manual: bool = False,
-                 n_g: int = 1):
-    """Kernel body factory.
+def _make_kernel(want: str, k: int, kp: int, S: int):
+    def kernel(sig_ref, g_ref, b_ref, rn_ref, dob_ref, *out_refs):
+        dtype = g_ref.dtype
+        sigma = sig_ref[...]
+        sigma2 = sigma * sigma                                  # (S,)
+        ii = lax.broadcasted_iota(jnp.int32, (S, kp), 1)
+        rr = lax.broadcasted_iota(jnp.int32, (S, kp, kp), 1)
+        cc = lax.broadcasted_iota(jnp.int32, (S, kp, kp), 2)
+        eye = (rr == cc).astype(dtype)
+        diag = jnp.where(ii < k, sigma2[:, None], 1.0)          # (S, kp)
+        A0 = g_ref[...] + eye * diag[:, :, None]
+        b = b_ref[...]
+        need_minv = want in ("fullt", "infer")
 
-    ``single_buf``: A holds ONE (k, k, T) slot (no G prefetch overlap) —
-    the lean big-k configuration; at large k the DMA is ~2% of compute.
-    ``sm_manual``: the (k, k, B) second-moment output lives in ANY memory
-    and is written from a single VMEM scratch by an explicit DMA at tile
-    end, instead of a double-buffered pipelined output block.  (For "chol"
-    the L output plays the SM role.)
-    ``n_g``: number of G input refs — 1 for the full (k, k, B) Gram, else
-    one wedge slab per ``g_slabs(k)`` entry, DMA'd to its static A region
-    (the dead lower wedge holds stale VMEM, which every read masks away).
-    """
-    def kernel(sigma_ref, *args):
-        g_refs = args[:n_g]
-        G_hbm = g_refs[0]
-        b_ref, rn_ref, dob_ref, *rest = args[n_g:]
-        out_sem = None
-        SM_hbm = None
-        if want in ("llk", "chol"):
-            if want == "chol" and sm_manual:
-                (L_hbm, A_scr, L_scr, in_sems, out_sem) = rest
-                llk_ref = L_scr          # progressive column writes -> scratch
-                SM_hbm = L_hbm
-            else:
-                (llk_ref, A_scr, in_sems) = rest   # llk_ref is L_ref for "chol"
-            Res_scr = None
-            SM_ref = None
-        elif want == "states":
-            (s_ref, llk_ref, A_scr, Res_scr, in_sems) = rest
-            SM_ref = None
-        elif sm_manual:      # lean "full" / "infer" / "fullt"
-            (s_ref, SM_hbm, llk_ref, sq_ref, A_scr, Res_scr, SM_scr,
-             in_sems, out_sem) = rest
-            SM_ref = SM_scr
-        else:                # "full" / "infer" / "fullt"
-            (s_ref, SM_ref, llk_ref, sq_ref, A_scr, Res_scr, in_sems) = rest
+        def body(j, carry):
+            A, v, dvec, logdet, R = carry
+            col = jnp.sum(jnp.where(cc == j, A, 0.0), axis=2)   # A[:, :, j]
+            d = jnp.sum(jnp.where(ii == j, col, 0.0), axis=1)
+            # row j: zero left of the pivot, and the trailing block is the
+            # (symmetric) Schur complement, so it is the column's lower part
+            row = jnp.where(ii >= j, col, 0.0)
+            f = jnp.where(ii == j, 0.0, col * (1.0 / d)[:, None])
+            A = A - f[:, :, None] * row[:, None, :]
+            vj = jnp.sum(jnp.where(ii == j, v, 0.0), axis=1)
+            v = v - f * vj[:, None]
+            if need_minv:
+                rrow = jnp.sum(jnp.where(rr == j, R, 0.0), axis=1)
+                R = R - f[:, :, None] * rrow[:, None, :]
+            dvec = jnp.where(ii == j, d[:, None], dvec)
+            return A, v, dvec, logdet + jnp.log(d), R
 
-        k = A_scr.shape[1]
-        T = A_scr.shape[3]
-        sigma2 = sigma_ref[0, :]          # (T,) per-lane noise variance
-        dtype = b_ref.dtype
-        ii = lax.broadcasted_iota(jnp.int32, (k, T), 0)   # row index over (k, T)
-        i = pl.program_id(0)
-        n_tiles = pl.num_programs(0)
-        two = jnp.asarray(2, jnp.asarray(i).dtype)
-        if single_buf:
-            cur = 0
-        else:
-            cur = lax.rem(jnp.asarray(i), two)
-        nxt = lax.rem(jnp.asarray(i) + 1, two)
+        R0 = eye if need_minv else jnp.zeros((S,), dtype)
+        carry = (A0, b, jnp.ones((S, kp), dtype), jnp.zeros((S,), dtype), R0)
+        _, v, dvec, logdet, R = lax.fori_loop(0, k, body, carry)
+        s = v / dvec                                            # M^{-1} b
 
-        if n_g == 1:
-            def g_copies(slot, tile):
-                return [pltpu.make_async_copy(
-                    G_hbm.at[:, :, pl.ds(tile * T, T)], A_scr.at[slot],
-                    in_sems.at[slot],
-                )]
-        else:
-            def g_copies(slot, tile):
-                return [
-                    pltpu.make_async_copy(
-                        g_refs[si].at[:, :, pl.ds(tile * T, T)],
-                        A_scr.at[slot, r0:r1, r0:],
-                        in_sems.at[slot, si],
-                    )
-                    for si, (r0, r1) in enumerate(g_slabs(k))
-                ]
-
-        def g_start(slot, tile):
-            for c in g_copies(slot, tile):
-                c.start()
-
-        def g_wait(slot, tile):
-            for c in g_copies(slot, tile):
-                c.wait()
-
-        def sm_flush():
-            """Manual DMA of the finished SM/L tile to its HBM output.
-            Started and waited serially: the copy is ~k^2 T bytes against
-            ~k^3 T compute, so overlap isn't worth a second scratch."""
-            copy = pltpu.make_async_copy(
-                llk_ref if want == "chol" else SM_ref,
-                SM_hbm.at[:, :, pl.ds(i * T, T)],
-                out_sem,
-            )
-            copy.start()
-            copy.wait()
-
-        if single_buf:
-            g_start(0, i)
-        else:
-            @pl.when(i == 0)
-            def _():
-                g_start(cur, i)
-
-            @pl.when(i + 1 < n_tiles)
-            def _():
-                g_start(nxt, i + 1)
-
-        g_wait(cur, i)                    # A[cur] now holds G (no sigma^2 yet)
-
-        if Res_scr is not None:
-            eye3 = (lax.broadcasted_iota(jnp.int32, (k, k, T), 0)
-                    == lax.broadcasted_iota(jnp.int32, (k, k, T), 1)).astype(dtype)
-            Res_scr[...] = eye3
-        if SM_ref is not None:
-            SM_ref[...] = jnp.zeros_like(SM_ref)
-
-        b = b_ref[...]                                    # (k, T)
-        rnorm = rn_ref[0, :]
-        d_obs = dob_ref[0, :]
-
-        # ---- the single fused column loop -------------------------------
-        if want == "chol":
-            # Cholesky factors only: write column j of L (the lcol the loop
-            # computes anyway) into row j of the (k, k, T) output, i.e. the
-            # output holds L^T; spd_chol() transposes back.
-            def chol_col_c(j, corrections):
-                colM = A_scr[cur, j] + sigma2[None, :] * (ii == j).astype(dtype)
-                for lc in corrections:
-                    coef = jnp.sum(jnp.where(ii == j, lc, 0.0), axis=0)
-                    colM = colM - lc * coef[None, :]
-                diag = jnp.sum(jnp.where(ii == j, colM, 0.0), axis=0)
-                inv_sqrt = lax.rsqrt(diag)
-                return jnp.where(ii >= j, colM * inv_sqrt[None, :], 0.0)
-
-            def make_body_c(j0, j1):
-                def body(p, carry):
-                    j = j0 + p * 2
-                    l0 = chol_col_c(j, ())
-                    l1 = chol_col_c(j + 1, (l0,))
-                    _a_update(A_scr, cur, j0, k, l0, l1, TRI_RB_LLK)
-                    llk_ref[j] = l0
-                    llk_ref[j + 1] = l1
-                    return carry
-
-                return body
-
-            carry = jnp.zeros((), jnp.int32)
-            for j0, j1 in _panels(k):
-                carry = lax.fori_loop(0, (j1 - j0) // 2, make_body_c(j0, j1), carry)
-            if sm_manual:
-                sm_flush()
-            return
+        d_obs = dob_ref[...]
+        ld = logdet + jnp.log(sigma2) * (d_obs - k)
+        quad = jnp.sum(b * s, axis=1)
+        llk = -0.5 * ((rn_ref[...] - quad) / sigma2 + ld + LN_2PI * d_obs)
 
         if want == "llk":
-            def chol_col(j, corrections):
-                colM = A_scr[cur, j] + sigma2[None, :] * (ii == j).astype(dtype)
-                for lc in corrections:
-                    coef = jnp.sum(jnp.where(ii == j, lc, 0.0), axis=0)
-                    colM = colM - lc * coef[None, :]
-                diag = jnp.sum(jnp.where(ii == j, colM, 0.0), axis=0)
-                inv_sqrt = lax.rsqrt(diag)
-                lcol = jnp.where(ii >= j, colM * inv_sqrt[None, :], 0.0)
-                return lcol, inv_sqrt, diag
-
-            # rank-2 pairs (k is even: spd_estep pads to a multiple of 8),
-            # one statically-sliced A pass and one r pass per pair.
-            def make_body(j0, j1):
-                def body(p, carry):
-                    logdet, r, quad = carry
-                    j = j0 + p * 2
-                    l0, is0, d0 = chol_col(j, ())
-                    l1, is1, d1 = chol_col(j + 1, (l0,))
-                    # NB: slice-then-expand_dims — `v[j0:, None, :]` on a
-                    # *value* lowers to an unsupported gather in Mosaic.
-                    _a_update(A_scr, cur, j0, k, l0, l1, TRI_RB_LLK)
-                    y0 = jnp.sum(jnp.where(ii == j, r, 0.0), axis=0) * is0
-                    r1 = jnp.sum(jnp.where(ii == j + 1, r, 0.0), axis=0)
-                    l0_at_1 = jnp.sum(jnp.where(ii == j + 1, l0, 0.0), axis=0)
-                    y1 = (r1 - y0 * l0_at_1) * is1
-                    r = r - y0[None, :] * l0 - y1[None, :] * l1
-                    return (logdet + jnp.log(d0) + jnp.log(d1),
-                            r, quad + y0 * y0 + y1 * y1)
-
-                return body
-
-            carry = (jnp.zeros((T,), dtype), b, jnp.zeros((T,), dtype))
-            for j0, j1 in _panels(k):
-                carry = lax.fori_loop(0, (j1 - j0) // 2, make_body(j0, j1), carry)
-            logdet, _, quad_b = carry
-            quad = (rnorm - quad_b) / sigma2
-            ld = logdet + jnp.log(sigma2) * (d_obs - k)
-            llk_ref[...] = (-0.5 * (quad + ld + LN_2PI * d_obs))[None, :]
-            return
-
-        def col_step(j, corrections):
-            """One Cholesky column with in-pair corrections applied lazily
-            (the trailing buffer updates happen once per pair)."""
-            colM = A_scr[cur, j] + sigma2[None, :] * (ii == j).astype(dtype)
-            for lc in corrections:
-                coef = jnp.sum(jnp.where(ii == j, lc, 0.0), axis=0)
-                colM = colM - lc * coef[None, :]
-            diag = jnp.sum(jnp.where(ii == j, colM, 0.0), axis=0)
-            inv_sqrt = lax.rsqrt(diag)
-            lcol = jnp.where(ii >= j, colM * inv_sqrt[None, :], 0.0)
-            return lcol, inv_sqrt, diag
-
-        def w_step(j, inv_sqrt, pairs):
-            """Row j of W = L^{-1} with in-pair corrections."""
-            wrow = Res_scr[j]
-            for lc, wr in pairs:
-                coef = jnp.sum(jnp.where(ii == j, lc, 0.0), axis=0)
-                wrow = wrow - wr * coef[None, :]
-            return wrow * inv_sqrt[None, :]
-
-        # rank-2 pairs (k is even after spd_estep's pad-to-8): two columns per
-        # iteration, ONE statically-sliced read-modify-write pass over each
-        # big buffer per pair.  Rank-4 measured slower (in-group serial
-        # corrections outweigh the traffic savings); the staircase slicing is
-        # what actually cuts the VPU FMA count (see module docstring).
-        def make_body(j0, j1):
-            def body(p, carry):
-                logdet, s = carry
-                j = j0 + p * 2
-                l0, is0, d0 = col_step(j, ())
-                w0 = w_step(j, is0, ())
-                l1, is1, d1 = col_step(j + 1, (l0,))
-                w1 = w_step(j + 1, is1, ((l0, w0),))
-                logdet = logdet + jnp.log(d0) + jnp.log(d1)
-                # NB: slice-then-expand_dims everywhere — `v[j0:, None, :]`
-                # on a *value* lowers to an unsupported gather in Mosaic.
-                l0t, l1t = l0[j0:], l1[j0:]
-                w0h, w1h = w0[:j1], w1[:j1]
-                # Cholesky trailing update: upper wedge of rows/cols >= j0.
-                _a_update(A_scr, cur, j0, k, l0, l1, TRI_RB_MAIN)
-                # Res -= lcol wrow^T: lcol is zero above j, wrow (a row of the
-                # lower-triangular W = L^{-1}) is zero beyond col j < j1.
-                Res_scr[j0:, :j1] = Res_scr[j0:, :j1] - (
-                    jnp.expand_dims(l0t, 1) * jnp.expand_dims(w0h, 0)
-                    + jnp.expand_dims(l1t, 1) * jnp.expand_dims(w1h, 0)
-                )
-                # s = M^{-1} b = sum_j wrow_j (wrow_j . b)
-                s = s + w0 * jnp.sum(w0 * b, axis=0)[None, :]
-                s = s + w1 * jnp.sum(w1 * b, axis=0)[None, :]
-                if SM_ref is not None:
-                    if want == "fullt":
-                        # symmetric: only the lower wedge (row >= col) is
-                        # needed; rb-row blocks with cols [:r1] halve the FMAs
-                        for r0 in range(0, j1, TRI_RB_MAIN):
-                            r1 = min(r0 + TRI_RB_MAIN, j1)
-                            w0r, w1r = w0[r0:r1], w1[r0:r1]
-                            w0c, w1c = w0[:r1], w1[:r1]
-                            SM_ref[r0:r1, :r1] = SM_ref[r0:r1, :r1] + (
-                                jnp.expand_dims(w0r, 1) * jnp.expand_dims(w0c, 0)
-                                + jnp.expand_dims(w1r, 1) * jnp.expand_dims(w1c, 0)
-                            )
-                    else:
-                        # M^{-1} += wrow wrow^T: support is the leading
-                        # (j+1) x (j+1) block, j < j1.
-                        SM_ref[:j1, :j1] = SM_ref[:j1, :j1] + (
-                            jnp.expand_dims(w0h, 1) * jnp.expand_dims(w0h, 0)
-                            + jnp.expand_dims(w1h, 1) * jnp.expand_dims(w1h, 0)
-                        )
-                return (logdet, s)
-
-            return body
-
-        carry = (jnp.zeros((T,), dtype), jnp.zeros((k, T), dtype))
-        for j0, j1 in _panels(k):
-            carry = lax.fori_loop(0, (j1 - j0) // 2, make_body(j0, j1), carry)
-        logdet, s = carry
-
-        s_ref[...] = s
-        bs = jnp.sum(b * s, axis=0)
-        quad = (rnorm - bs) / sigma2
-        ld = logdet + jnp.log(sigma2) * (d_obs - k)
-        llk_ref[...] = (-0.5 * (quad + ld + LN_2PI * d_obs))[None, :]
-
-        if SM_ref is not None:
-            eye_col = (lax.broadcasted_iota(jnp.int32, (k, k, 1), 0)
-                       == lax.broadcasted_iota(jnp.int32, (k, k, 1), 1)).astype(dtype)
-            tr_minv = jnp.sum(SM_ref[...] * eye_col, axis=(0, 1))
-            sq_ref[...] = (sigma2 * (k - sigma2 * tr_minv))[None, :]
-            if want == "infer":
-                # Sigma = sigma^2 M^{-1} directly (no s s^T round trip)
-                SM_ref[...] = sigma2[None, None, :] * SM_ref[...]
-            else:
-                # SM = s s^T + sigma^2 M^{-1}
-                SM_ref[...] = (s[:, None, :] * s[None, :, :]
-                               + sigma2[None, None, :] * SM_ref[...])
-            if sm_manual:
-                sm_flush()
+            (llk_ref,) = out_refs
+        elif want == "states":
+            s_ref, llk_ref = out_refs
+            s_ref[...] = s
+        else:
+            Sig = (sigma2[:, None] / dvec)[:, :, None] * R      # sigma^2 M^{-1}
+            if want == "fullt":
+                s_ref, sm_ref, llk_ref, sq_ref = out_refs
+                sm_ref[...] = s[:, :, None] * s[:, None, :] + Sig
+                tr = jnp.sum(jnp.where(ii < k, jnp.sum(Sig * eye, axis=2), 0.0), axis=1)
+                sq_ref[...] = sigma2 * k - sigma2 * tr
+            else:  # infer
+                s_ref, sm_ref, llk_ref = out_refs
+                sm_ref[...] = Sig
+            s_ref[...] = s
+        llk_ref[...] = llk
 
     return kernel
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(want: str, single_buf: bool, sm_manual: bool, n_g: int = 1):
-    return _make_kernel(want, single_buf, sm_manual, n_g)
-
-
-# big-buffer counts per configuration: comfortable = A double-buffered +
-# (Res) + pipelined SM/L output (2x); lean = A single + (Res) + one
-# manually-DMA'd SM/L scratch.
-_N_COMFORT = {"llk": 2, "chol": 4, "states": 3}
-_N_LEAN = {"llk": 1, "chol": 2, "states": 2}
-
-
-def _kernel_config(want: str, k: int, T: int):
-    """Pick ``(single_buf, sm_manual)`` for this (want, k-padded, tile), or
-    None when no configuration fits ``VMEM_BUDGET``.  The comfortable
-    (double-buffered, pipelined) configuration is preserved whenever it
-    fits — it is the benchmarked fast path; the lean configuration extends
-    the k ceiling (see the module docstring)."""
-    if k < 1:
-        return None
-    temps = 24 * (k + 4) * T * 4
-    if _N_COMFORT.get(want, 5) * k * k * T * 4 + temps <= VMEM_BUDGET:
-        return (False, False)
-    if _N_LEAN.get(want, 3) * k * k * T * 4 + temps <= VMEM_BUDGET:
-        return (True, want not in ("llk", "states"))
-    return None
-
-
-def max_k(want: str = "full", T: int = LANE) -> int:
-    """Largest state size the fused kernel handles for this variant."""
-    k = 0
-    while _kernel_config(want, k + 8, T) is not None:
-        k += 8
-    return k
-
-
-@functools.partial(jax.jit, static_argnames=("want", "interpret", "tile"))
-def spd_estep(sigma: jax.Array, G3: jax.Array, b_t: jax.Array,
-              rnorm: jax.Array, d_obs: jax.Array, *,
-              want: str = "full", interpret: bool = False, tile: int = 0):
+@functools.partial(jax.jit, static_argnames=("want", "interpret"))
+def spd_estep(G, b, rnorm, d_obs, sigma, *, want: str, interpret: bool = False):
     """Fused batched SPD E-step.
 
     Args:
-      sigma: scalar isotropic noise (not squared), or a per-sample (1, B)
-        lane vector (used by the fused mixture path, where lanes from
-        different components carry different noise levels).
-      G3: (k, k, B) per-sample masked Grams ``C^T diag(m) C`` (B on lanes).
-      b_t: (k, B) per-sample ``C^T (m * (y - mu))``.
-      rnorm: (1, B) squared norms of the masked centered samples.
-      d_obs: (1, B) observed-entry counts.
-      want: "llk" -> (llk,); "states" -> (s_t, llk);
-            "full" -> (s_t, SM3, llk, sq).
+      G: (B, k, k) per-sample masked Grams ``C^T diag(m) C``.
+      b: (B, k) per-sample ``C^T (m * (y - mu))``.
+      rnorm: (B,) squared norms of the masked centred samples.
+      d_obs: (B,) observed-entry counts.
+      sigma: isotropic noise (not squared), scalar or per sample (B,) —
+        the fused mixture stacks components with different noise levels.
+      want: "llk" -> llk; "states" -> (s, llk); "fullt" -> (s, SM, llk, sq);
+        "infer" -> (s, Sigma, llk).
+      interpret: run the kernel in the Pallas interpreter (tests only).
 
-    Returns (per ``want``): s_t (k, B) posterior states, SM3 (k, k, B) second
-    moments ``s s^T + sigma^2 M^{-1}``, llk (1, B) log-likelihoods,
-    sq (1, B) = ``tr(G Sigma)``.
-
-    ``G3`` may instead be a TUPLE of wedge slabs — one (r1-r0, k-r0, B)
-    array per ``g_slabs(k)`` entry, covering exactly the upper wedge the
-    kernel reads — so callers skip computing/writing the dead lower wedge.
-    Slab mode requires k % 8 == 0 (no internal re-pad).
+    Returns s (B, k) posterior states, SM (B, k, k) second moments
+    ``s s^T + sigma^2 M^{-1}`` (or Sigma = ``sigma^2 M^{-1}``), llk (B,)
+    log-likelihoods and sq (B,) = ``tr(G Sigma)``.
     """
     if want not in WANTS:
         raise ValueError(f"want must be one of {WANTS}")
-    if want == "chol":
-        raise ValueError("use spd_chol() for the batched-Cholesky variant")
-    if isinstance(G3, (tuple, list)):
-        G3 = tuple(G3)
-        k, B = b_t.shape
-        if k % 8 != 0:
-            raise ValueError("slab-mode G requires k % 8 == 0")
-        slabs = g_slabs(k)
-        if len(G3) != len(slabs) or any(
-            g.shape != (r1 - r0, k - r0, B) for g, (r0, r1) in zip(G3, slabs)
-        ):
-            raise ValueError(
-                f"slab shapes {[g.shape for g in G3]} do not match "
-                f"g_slabs({k}) x batch {B}"
-            )
-    else:
-        k, _, B = G3.shape
-    if B % LANE != 0:
-        raise ValueError(f"batch {B} must be a multiple of {LANE}")
+    B, k, _ = G.shape
+    if k < 1:
+        raise ValueError("the kernel needs a state size k >= 1")
+    dtype = G.dtype
+    kp = padded_k(k)
+    S = samples_per_program(k, B)
+    Bp = -(-B // S) * S
+    sigma = jnp.broadcast_to(jnp.asarray(sigma, dtype), (B,))
+    if kp != k:
+        G = jnp.pad(G, ((0, 0), (0, kp - k), (0, kp - k)))
+        b = jnp.pad(b, ((0, 0), (0, kp - k)))
+    if Bp != B:
+        pad = Bp - B
+        G = jnp.concatenate([G, jnp.broadcast_to(jnp.eye(kp, dtype=dtype), (pad, kp, kp))])
+        b = jnp.pad(b, ((0, pad), (0, 0)))
+        rnorm = jnp.pad(rnorm, (0, pad))
+        d_obs = jnp.pad(d_obs, (0, pad))
+        sigma = jnp.pad(sigma, (0, pad), constant_values=1.0)
 
-    # The manual G DMA slices the (k, k, B) buffer, and Mosaic requires the
-    # sublane dimension aligned to 8.  Zero-pad k to a multiple of 8: padded
-    # dims make M block-diagonal with a sigma^2 I block, and the algebra
-    # absorbs it exactly — logdet gains (k8-k) log sigma^2 which cancels
-    # against the -k8 log sigma^2 of the observed-dim term, padded states are
-    # 0, and the trace identity's extra sigma^2 (1 - sigma^2/sigma^2) is 0.
-    k8 = -(-k // 8) * 8
-    if k8 != k:
-        pad = k8 - k
-        G3 = jnp.pad(G3, ((0, pad), (0, pad), (0, 0)))
-        b_t = jnp.pad(b_t, ((0, pad), (0, 0)))
-        out = spd_estep(sigma, G3, b_t, rnorm, d_obs, want=want,
-                        interpret=interpret, tile=tile)
-        if want == "llk":
-            return out
-        if want == "states":
-            s_t, llk = out
-            return s_t[:k], llk
-        s_t, SM3, llk, sq = out
-        return s_t[:k], SM3[:k, :k], llk, sq
-
-    g_parts = G3 if isinstance(G3, tuple) else (G3,)
-    n_g = len(g_parts)
-    dtype = g_parts[0].dtype
-    sigma = jnp.asarray(sigma, dtype)
-    sigma2 = jnp.broadcast_to((sigma * sigma).reshape(1, -1), (1, B))
-    # Wider tiles were measured SLOWER (k=64: 8.1 ms at T=256 vs 7.1 ms at
-    # T=128) — the serial column chain is not latency-bound enough for wider
-    # VPU ops to pay for their VMEM pressure. `tile` stays a knob for
-    # experiments; the default is one lane tile.
-    T = tile if tile else LANE
-    if B % T != 0:
-        raise ValueError(f"batch {B} must be a multiple of tile {T}")
-    grid = (B // T,)
-
-    cfg = _kernel_config(want, k, T)
-    if cfg is None:
-        raise ValueError(
-            f"state size k={k} exceeds the fused kernel's VMEM ceiling for "
-            f"want={want!r} (max {max_k(want, T)}); route through the XLA "
-            "fallback instead (see masked_linalg._use_kernel)"
-        )
-    single_buf, sm_manual = cfg
-
-    def vec_spec(rows):
-        return pl.BlockSpec((rows, T), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    n_slots = 1 if single_buf else 2
-    a_scr = pltpu.VMEM((n_slots, k, k, T), dtype)    # (double-buffered) G/A
-    res_scr = pltpu.VMEM((k, k, T), dtype)
-    sems = pltpu.SemaphoreType.DMA(
-        (n_slots,) if n_g == 1 else (n_slots, n_g)
-    )
-    if want == "llk":
-        out_specs = (vec_spec(1),)
-        out_shape = (jax.ShapeDtypeStruct((1, B), dtype),)
-        scratch = [a_scr, sems]
-    elif want == "states":
-        out_specs = (vec_spec(k), vec_spec(1))
-        out_shape = (
-            jax.ShapeDtypeStruct((k, B), dtype),
-            jax.ShapeDtypeStruct((1, B), dtype),
-        )
-        scratch = [a_scr, res_scr, sems]
-    else:
-        sm_spec = (
-            pl.BlockSpec(memory_space=pl.ANY)
-            if sm_manual
-            else pl.BlockSpec((k, k, T), lambda i: (0, 0, i), memory_space=pltpu.VMEM)
-        )
-        out_specs = (vec_spec(k), sm_spec, vec_spec(1), vec_spec(1))
-        out_shape = (
-            jax.ShapeDtypeStruct((k, B), dtype),
-            jax.ShapeDtypeStruct((k, k, B), dtype),
-            jax.ShapeDtypeStruct((1, B), dtype),
-            jax.ShapeDtypeStruct((1, B), dtype),
-        )
-        scratch = [a_scr, res_scr, sems]
-        if sm_manual:
-            scratch = [a_scr, res_scr, pltpu.VMEM((k, k, T), dtype), sems,
-                       pltpu.SemaphoreType.DMA]
-
-    # Raise the Mosaic VMEM allowance to what the buffers actually need (the
-    # default ~16 MB limit is far below the chip's 128 MB and capped k at 72).
-    counts = _N_LEAN if single_buf else _N_COMFORT
-    n_big = counts.get(want, 3 if single_buf else 5)
-    # Mosaic also stack-allocates the kernel-body temporaries (each column
-    # step holds a few (k, T) values), so leave generous headroom.
-    vmem_bytes = n_big * k * k * T * 4 + 24 * (k + 4) * T * 4
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=min(int(vmem_bytes * 1.3) + (4 << 20), 128 * 1024 * 1024)
-        )
-    out = pl.pallas_call(
-        _kernel_fn(want, single_buf, sm_manual, n_g),
-        grid=grid,
-        in_specs=[
-            vec_spec(1),                            # per-lane sigma^2
-            # G streams by manual DMA: one full ref or n_g wedge slabs
-            *([pl.BlockSpec(memory_space=pl.ANY)] * n_g),
-            vec_spec(k),
-            vec_spec(1),
-            vec_spec(1),
-        ],
+    vec = pl.BlockSpec((S,), lambda i: (i,))
+    mat = pl.BlockSpec((S, kp), lambda i: (i, 0))
+    cube = pl.BlockSpec((S, kp, kp), lambda i: (i, 0, 0))
+    vec_out = jax.ShapeDtypeStruct((Bp,), dtype)
+    mat_out = jax.ShapeDtypeStruct((Bp, kp), dtype)
+    cube_out = jax.ShapeDtypeStruct((Bp, kp, kp), dtype)
+    outs = {
+        "llk": ((vec,), (vec_out,)),
+        "states": ((mat, vec), (mat_out, vec_out)),
+        "fullt": ((mat, cube, vec, vec), (mat_out, cube_out, vec_out, vec_out)),
+        "infer": ((mat, cube, vec), (mat_out, cube_out, vec_out)),
+    }
+    out_specs, out_shape = outs[want]
+    res = pl.pallas_call(
+        _make_kernel(want, k, kp, S),
+        grid=(Bp // S,),
+        in_specs=[vec, cube, mat, vec, vec],
         out_specs=out_specs,
         out_shape=out_shape,
-        scratch_shapes=scratch,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(k, B), num_stages=1
+        ),
         interpret=interpret,
-        **kwargs,
-    )(sigma2, *g_parts, b_t, rnorm, d_obs)
-    return out
+        name=f"spd_estep_{want}",
+    )(sigma, G.astype(dtype), b.astype(dtype), rnorm.astype(dtype),
+      d_obs.astype(dtype))
 
+    def cut(x):
+        x = x[:B]
+        if x.ndim >= 2:
+            x = x[:, :k]
+        if x.ndim == 3:
+            x = x[:, :, :k]
+        return x
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def spd_chol(M3: jax.Array, *, interpret: bool = False) -> jax.Array:
-    """Batched lower Cholesky of SPD matrices, batch on lanes.
-
-    Args:
-      M3: (k, k, B) SPD matrices (B on lanes, any B — padded internally to a
-        LANE multiple with identity matrices, which factor to themselves).
-
-    Returns L3 (k, k, B) lower-triangular with ``L3[..., b] @ L3[..., b].T
-    == M3[..., b]``.  This is the sampler backend: XLA's batched ``cholesky``
-    on (B, k, k) operands runs ~50x slower on TPU (see module docstring).
-    """
-    k, _, B = M3.shape
-    dtype = M3.dtype
-    k8 = -(-k // 8) * 8
-    B8 = -(-B // LANE) * LANE
-    if k8 != k or B8 != B:
-        # pad extra diagonal entries (and whole extra matrices) with 1s so
-        # the factorization stays finite; padding factors to itself and is
-        # sliced away below.
-        eye_pad = (
-            lax.broadcasted_iota(jnp.int32, (k8, k8, 1), 0)
-            == lax.broadcasted_iota(jnp.int32, (k8, k8, 1), 1)
-        ).astype(dtype)
-        Mp = jnp.pad(M3, ((0, k8 - k), (0, k8 - k), (0, B8 - B)))
-        pad_mask = jnp.ones((k8, k8, B8), dtype)
-        pad_mask = pad_mask.at[:k, :k, :B].set(0.0)
-        M3 = Mp + pad_mask * eye_pad
-    kk = k8
-    T = LANE
-    grid = (B8 // T,)
-
-    cfg = _kernel_config("chol", kk, T)
-    if cfg is None:
-        raise ValueError(
-            f"state size k={k} exceeds the fused Cholesky kernel's VMEM "
-            f"ceiling (max {max_k('chol', T)})"
-        )
-    single_buf, sm_manual = cfg
-    n_slots = 1 if single_buf else 2
-    a_scr = pltpu.VMEM((n_slots, kk, kk, T), dtype)
-    sems = pltpu.SemaphoreType.DMA((n_slots,))
-    zero_vec = jnp.zeros((1, B8), dtype)
-    zero_b = jnp.zeros((kk, B8), dtype)
-
-    def vec_spec(rows):
-        return pl.BlockSpec((rows, T), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    if sm_manual:
-        out_spec = pl.BlockSpec(memory_space=pl.ANY)
-        scratch = [a_scr, pltpu.VMEM((kk, kk, T), dtype), sems,
-                   pltpu.SemaphoreType.DMA]
-    else:
-        out_spec = pl.BlockSpec((kk, kk, T), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM)
-        scratch = [a_scr, sems]
-
-    kwargs = {}
-    if not interpret:
-        n_big = (_N_LEAN if single_buf else _N_COMFORT)["chol"]
-        vmem_bytes = n_big * kk * kk * T * 4 + 24 * (kk + 4) * T * 4
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=min(int(vmem_bytes * 1.3) + (4 << 20), 128 * 1024 * 1024)
-        )
-    (Lt,) = pl.pallas_call(
-        _kernel_fn("chol", single_buf, sm_manual),
-        grid=grid,
-        in_specs=[
-            vec_spec(1),
-            pl.BlockSpec(memory_space=pl.ANY),
-            vec_spec(kk),
-            vec_spec(1),
-            vec_spec(1),
-        ],
-        out_specs=(out_spec,),
-        out_shape=(jax.ShapeDtypeStruct((kk, kk, B8), dtype),),
-        scratch_shapes=scratch,
-        interpret=interpret,
-        **kwargs,
-    )(zero_vec, M3, zero_b, zero_vec, zero_vec)
-    # the kernel writes column j of L into row j: transpose back to L-major
-    L3 = jnp.transpose(Lt, (1, 0, 2))
-    return L3[:k, :k, :B]
-
-
-def supported(k: int, block: int, dtype, want: str = "full") -> bool:
-    """Whether the fused kernel handles this configuration.
-
-    The ceiling depends on the variant's buffer count (see the module
-    docstring): full/fullt/infer reach k=256, states ~312, llk/chol ~440;
-    pass ``want`` so lighter variants aren't capped by the full kernel."""
-    k8 = -(-k // 8) * 8  # the kernel zero-pads k to a sublane multiple
-    return (
-        k8 >= 1
-        and _kernel_config(want, k8, LANE) is not None
-        and block % LANE == 0
-        and dtype == jnp.float32
-    )
+    res = tuple(cut(x) for x in res)
+    return res[0] if want == "llk" else res

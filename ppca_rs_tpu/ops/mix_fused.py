@@ -9,9 +9,9 @@ blocked scan:
 
 * the per-sample masked Grams and projections for all M components are
   batched einsums over a stacked ``Cs (M, D, k)``;
-* the Pallas SPD kernel is per-sample independent, so the M components'
-  blocks simply CONCATENATE along the lane axis — one kernel call factors
-  M x B posteriors at once;
+* the per-sample SPD work is independent across samples and components,
+  so one batched factorization (or one kernel call) covers all M x B
+  posteriors of a block;
 * component responsibilities come from the same per-sample llks inside the
   block, so the M-step statistics are accumulated responsibility-weighted in
   the same pass.
@@ -64,11 +64,12 @@ class MixEMStats(NamedTuple):
 
 
 def _block_post(Cs, CCs, means, sigmas, datab, mask_f,
-                use_kernel: bool, axis_model: Optional[str], want: str = "full"):
+                route: str, axis_model: Optional[str], want: str):
     """Per-component posteriors for one block of samples, all M components in
-    one shot (stacked along the Pallas kernel's lane axis, or batched XLA
-    Cholesky).  Returns (R, llks, s, SM, sq_b); ``s``/``SM``/``sq_b`` are
-    None when ``want`` doesn't request them ("llk" < "states" < "full")."""
+    one shot (one kernel call over the M*B problems, or one batched
+    factorization).  Returns (R, llks, s, SM, sq_b); ``s``/``SM``/``sq_b``
+    are None when ``want`` (a kernels.WANTS variant) doesn't request them
+    ("llk" < "states" < "infer"/"fullt"; "infer" returns Sigma as SM)."""
     M, D_loc, k = Cs.shape
     B = datab.shape[0]
     dtype = datab.dtype
@@ -81,46 +82,33 @@ def _block_post(Cs, CCs, means, sigmas, datab, mask_f,
     d_obs = _psum(jnp.sum(mask_f, axis=-1), axis_model)                # (B,)
 
     s = SM = sq_b = None
-    if use_kernel:
-        from . import kernels
-
-        G3 = _psum(G_flat_loc, axis_model).reshape(M * B, k, k).transpose(1, 2, 0)
-        b_t = b.reshape(M * B, k).T
-        sig_lane = jnp.repeat(sigmas, B)[None, :]                 # (1, M*B)
-        dob_lane = jnp.tile(d_obs, M)[None, :]
-        out = kernels.spd_estep(
-            sig_lane, G3, b_t, rnorm.reshape(1, M * B), dob_lane, want=want
+    if route == "kernel":
+        out = _kernel_mix(
+            G_flat_loc.reshape(M, B, k, k), b, rnorm, d_obs, sigmas, want
         )
-        if want == "llk":
-            (llk_l,) = out
-        elif want == "states":
-            s_t, llk_l = out
-            s = s_t.T.reshape(M, B, k)
-        else:
-            s_t, SM3, llk_l, sq_l = out
-            s = s_t.T.reshape(M, B, k)
-            SM = SM3.reshape(k * k, M, B).transpose(1, 2, 0)
-            sq_b = sq_l.reshape(M, B)
-        llks = llk_l.reshape(M, B)
+        llks, s = out[0], out[1]
+        if want in ("fullt", "infer"):
+            SM = out[2].reshape(M, B, k * k)
+        if want == "fullt":
+            sq_b = out[3]
     else:
         sigma2 = (sigmas * sigmas)[:, None, None]
         G = _psum(G_flat_loc, axis_model).reshape(M, B, k, k)
         Mmat = G + sigma2[..., None] * jnp.eye(k, dtype=dtype)
         Sigma = None
-        if k > 0 and ml._use_blocked(k, B, dtype, axis_model, want):
-            # past the kernel ceiling: blocked Schur inverse (block_spd)
+        if route == "blocked":
             from . import block_spd
 
             Minv, ldm = block_spd.inv_logdet(Mmat.reshape(M * B, k, k))
             Minv = Minv.reshape(M, B, k, k)
             logdet_m = ldm.reshape(M, B)
             s = block_spd.mm_hp(Minv, b[..., None])[..., 0]
-            if want in ("full", "infer", "fullt"):
+            if want in ("infer", "fullt"):
                 Sigma = sigma2[..., None] * Minv
         else:
             L = jnp.linalg.cholesky(Mmat)
             s = jax.scipy.linalg.cho_solve((L, True), b[..., None])[..., 0]
-            if want in ("full", "infer", "fullt"):
+            if want in ("infer", "fullt"):
                 eye = jnp.broadcast_to(jnp.eye(k, dtype=dtype), Mmat.shape)
                 Sigma = sigma2[..., None] * jax.scipy.linalg.cho_solve((L, True), eye)
             if k > 0:
@@ -128,9 +116,7 @@ def _block_post(Cs, CCs, means, sigmas, datab, mask_f,
                 logdet_m = 2.0 * jnp.sum(jnp.log(diag), axis=-1)
             else:
                 logdet_m = jnp.zeros((M, B), dtype)
-        if want in ("full", "infer", "fullt"):
-            # (the XLA fallback has no wedge savings: "fullt" just returns
-            # the full symmetric SM, which trivially satisfies the contract)
+        if want in ("infer", "fullt"):
             if want == "infer":
                 SM = Sigma.reshape(M, B, k * k)
             else:
@@ -146,15 +132,36 @@ def _block_post(Cs, CCs, means, sigmas, datab, mask_f,
     return R, llks, s, SM, sq_b
 
 
+def _kernel_mix(G4, b, rnorm, d_obs, sigmas, want: str):
+    """All M*B problems of a block through one kernel call.  ``G4`` is
+    (M, B, k, k), ``b`` (M, B, k), ``rnorm`` (M, B), ``d_obs`` (B,) and
+    ``sigmas`` (M,).  Returns (llks (M, B), s (M, B, k) or None,
+    SM or Sigma (M, B, k, k) or None, sq (M, B) or None) per ``want``."""
+    from . import kernels
+
+    M, B, k, _ = G4.shape
+    sig = jnp.broadcast_to(sigmas[:, None], (M, B)).reshape(M * B)
+    dob = jnp.broadcast_to(d_obs[None, :], (M, B)).reshape(M * B)
+    out = kernels.spd_estep(
+        G4.reshape(M * B, k, k), b.reshape(M * B, k), rnorm.reshape(M * B),
+        dob, sig, want=want,
+    )
+    if want == "llk":
+        return out.reshape(M, B), None, None, None
+    s = out[0].reshape(M, B, k)
+    if want == "states":
+        return out[1].reshape(M, B), s, None, None
+    sq = out[3].reshape(M, B) if want == "fullt" else None
+    return out[2].reshape(M, B), s, out[1].reshape(M, B, k, k), sq
+
+
 def compute_mix_tables(Cs, sigmas, patterns_f):
     """Per-(component, pattern) E-step tables: with P distinct mask patterns
     every mask-only quantity is computed M*P times instead of M*N times.
     Returns (Sigma (M, P, k^2), pat_llk (M, P), sq (M, P)) — the mixture twin
-    of ops/pattern_dedup.compute_tables, with all M*P problems stacked on the
-    kernel's lane axis in ONE call.  A fully-observed dataset is the P = 1
-    special case, which is how dense mixtures get their fast path."""
-    from . import pattern_dedup as pdd
-
+    of ops/pattern_dedup.compute_tables, all M*P problems in one batched
+    factorization.  A fully-observed dataset is the P = 1 special case,
+    which is how dense mixtures get their fast path."""
     M, D_loc, k = Cs.shape
     P = patterns_f.shape[0]
     dtype = patterns_f.dtype
@@ -162,28 +169,6 @@ def compute_mix_tables(Cs, sigmas, patterns_f):
     G = jnp.einsum("pd,mdq->mpq", patterns_f, CCs)            # (M,P,k^2)
     d_obs = jnp.sum(patterns_f, axis=-1)                      # (P,)
     sig = sigmas.astype(dtype)
-
-    if pdd._use_kernel_for_tables(k, dtype):
-        from . import kernels
-
-        lane = kernels.LANE
-        MP = M * P
-        MPp = -(-MP // lane) * lane
-        G3 = jnp.pad(
-            G.reshape(MP, k, k), ((0, MPp - MP), (0, 0), (0, 0))
-        ).transpose(1, 2, 0)
-        # padded lanes get sigma = 1 so their (discarded) values stay finite
-        sig_lane = jnp.pad(jnp.repeat(sig, P), (0, MPp - MP), constant_values=1.0)
-        dob = jnp.pad(jnp.tile(d_obs, M), (0, MPp - MP))
-        zeros_b = jnp.zeros((k, MPp), dtype)
-        zeros_r = jnp.zeros((1, MPp), dtype)
-        # With b = 0 the kernel returns SM = sigma^2 M^{-1}, the mask-only llk
-        # term, and sq = tr(G Sigma) directly.
-        _, SM3, llk, sq = kernels.spd_estep(
-            sig_lane[None, :], G3, zeros_b, zeros_r, dob[None, :]
-        )
-        Sigma = SM3.reshape(k * k, MPp).T[:MP].reshape(M, P, k * k)
-        return Sigma, llk[0, :MP].reshape(M, P), sq[0, :MP].reshape(M, P)
 
     sigma2 = (sig * sig)[:, None, None, None]
     Mm = G.reshape(M, P, k, k) + sigma2 * jnp.eye(k, dtype=dtype)
@@ -202,8 +187,11 @@ def compute_mix_tables(Cs, sigmas, patterns_f):
 
 def _center_prep(Cs, means):
     """Loop-invariant component-centering operands for the no-R fast path
-    (hoisted out of the scan; see _lane_major_prep for the mean0-centering
-    conditioning argument)."""
+    (hoisted out of the scan).  Per-component centerings are expressed
+    relative to the component-average mean (data is centred ONCE on mean0,
+    then corrected per component), so the expanded |r|^2 quadratic's
+    cancellation error scales with the between-component mean spread, not
+    with the raw data magnitude."""
     mean0 = jnp.mean(means, axis=0)
     dm = means - mean0                                        # (M,D)
     return mean0, dm, Cs * dm[:, :, None]                     # Cdm (M,D,k)
@@ -218,8 +206,8 @@ def _block_post_pat(Cs, means, sigmas, tables, datab, mask_f, pidx,
 
     ``Sig_b`` (the gathered per-sample (M, B, k^2) covariances) is only
     materialized with ``need_sig=True`` (the infer readout, which returns
-    them) — it costs 2 * 4 * M * k^2 bytes/sample of HBM traffic, the
-    dominant term of the pattern-mixture e-step.  Everyone else gets
+    them) — it costs 2 * 4 * M * k^2 bytes/sample of device-memory
+    traffic.  Everyone else gets
     ``None``: the states come from per-component candidate matmuls against
     the whole table + a row gather when ``config.pat_grouped_estep`` and
     P * k is small (see pattern_dedup._SALL_MAX_PK), or from the einsum on
@@ -282,24 +270,20 @@ def _block_post_pat(Cs, means, sigmas, tables, datab, mask_f, pidx,
     return R, llks, s, Sig_b, jnp.take(sq_tab, pidx, axis=1), b, rnorm
 
 
-# Kernel variant for the fused-EM second moment ("fullt" = lower-wedge SM,
-# symmetrized once in mix_em_finalize; "full" = plain).  Module-level so
-# microbenches can A/B the two.
+# SPD variant of the fused EM (second moments s s^T + Sigma and tr(G Sigma)).
 EM_WANT = "fullt"
 
 
 def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
-                    log_weights, datab, mask_f, w, use_kernel: bool):
+                    log_weights, datab, mask_f, w, route: str):
     """One block of the fused mixture EM in the axis_model-free fast form:
     no (M, B, D) temporary anywhere.
 
     - Component centering is the _center_prep trick: every per-component
       projection is a shared matmul against ``mask*(data - mean0)`` and
       ``mask`` (R = md0 - mask*dm_m never exists).
-    - The kernel operands are produced DIRECTLY in lane-major [*, m, b]
-      layout by pre-transposed ``(.., M, D)`` operands — the (M, B, k^2)
-      Gram/SM transposes of the naive form (134 MB each per 8k block at
-      D=512, M=8) disappear.
+    - The projections and Grams come from pre-transposed ``(.., M, D)``
+      operands, so every per-block contraction is one plain matmul.
     - Residual statistics use s^T G s = b.s - sigma^2 |s|^2 (M s = b), so
       dev_sq needs only k-sized per-sample quantities and total_dev two
       (M, D) contractions (same identities as the single-model paths).
@@ -320,11 +304,9 @@ def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
     q = k * k
     hp = jax.lax.Precision.HIGHEST
 
-    from ..config import config
-
     md0 = mask_f * (datab - mean0[None, :])                       # (B, D)
-    b_lane = (lax.dot_general(Cs_t, md0, (((1,), (1,)), ((), ())))
-              - lax.dot_general(Cdm_t, mask_f, (((1,), (1,)), ((), ()))))  # (kM, B)
+    b_km = (lax.dot_general(Cs_t, md0, (((1,), (1,)), ((), ())))
+            - lax.dot_general(Cdm_t, mask_f, (((1,), (1,)), ((), ()))))    # (kM, B)
     rd2 = jnp.sum(md0 * md0, axis=-1)                             # (B,)
     mdm = jnp.matmul(md0, dm.T, precision=hp)                     # (B, M)
     m2 = jnp.matmul(mask_f, dm2.T, precision=hp)                  # (B, M)
@@ -332,45 +314,18 @@ def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
     d_obs = jnp.sum(mask_f, axis=-1)                              # (B,)
     sigma2 = (sigmas * sigmas)[:, None]
 
-    if use_kernel:
-        from . import kernels
-
-        if config.g_slab_inputs and k % 8 == 0 and k > 16:
-            # Ship the Gram as the wedge slabs the kernel actually reads
-            # (kernels.g_slabs), exactly like the single-model
-            # _kernel_prep: one dot_general per row-block over cols [r0:],
-            # batch axis = the kernel's M*B lane batch.  The dead lower
-            # wedge is never computed or written.
-            CCs4 = CCs_t.reshape(k, k, M, D_loc)
-            G_arg = tuple(
-                lax.dot_general(
-                    CCs4[r0:r1, r0:], mask_f, (((3,), (1,)), ((), ()))
-                ).reshape(r1 - r0, k - r0, M * B)
-                for r0, r1 in kernels.g_slabs(k)
-            )
-        else:
-            G_lane = lax.dot_general(CCs_t, mask_f, (((1,), (1,)), ((), ())))
-            G_arg = G_lane.reshape(k, k, M * B)
-        sig_lane = jnp.repeat(sigmas, B)[None, :]
-        dob_lane = jnp.tile(d_obs, M)[None, :]
-        s_t, SM3, llk_l, sq_l = kernels.spd_estep(
-            sig_lane, G_arg, b_lane.reshape(k, M * B),
-            rnorm.reshape(1, M * B), dob_lane, want=EM_WANT,
+    b = b_km.reshape(k, M, B).transpose(1, 2, 0)                # (M, B, k)
+    G = lax.dot_general(CCs_t, mask_f, (((1,), (1,)), ((), ())))
+    G = G.reshape(q, M, B).transpose(1, 2, 0)                     # (M, B, q)
+    if route == "kernel":
+        llks, s, SM4, sq_b = _kernel_mix(
+            G.reshape(M, B, k, k), b, rnorm, d_obs, sigmas, EM_WANT
         )
-        llks = llk_l.reshape(M, B)
-        sq_b = sq_l.reshape(M, B)
-        s3 = s_t.reshape(k, M, B)
-        SM3v = SM3.reshape(q, M, B)
-        bs = jnp.sum(b_lane.reshape(k, M, B) * s3, axis=0)        # (M, B)
-        s2 = jnp.sum(s3 * s3, axis=0)
+        SM = SM4.reshape(M, B, q)
     else:
-        b = b_lane.reshape(k, M, B).transpose(1, 2, 0)            # (M, B, k)
-        G = lax.dot_general(CCs_t, mask_f, (((1,), (1,)), ((), ())))
-        G = G.reshape(q, M, B).transpose(1, 2, 0)                 # (M, B, q)
         eye = jnp.eye(k, dtype=dtype)
         Mmat = G.reshape(M, B, k, k) + sigma2[..., None, None] * eye
-        if k > 0 and ml._use_blocked(k, B, dtype, None, EM_WANT):
-            # past the kernel ceiling: blocked Schur inverse (block_spd)
+        if route == "blocked":
             from . import block_spd
 
             Minv, ldm = block_spd.inv_logdet(Mmat.reshape(M * B, k, k))
@@ -391,13 +346,13 @@ def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
                 logdet_m = jnp.zeros((M, B), dtype)
         SM = (s[..., :, None] * s[..., None, :] + Sigma).reshape(M, B, q)
         sq_b = jnp.sum(G * Sigma.reshape(M, B, q), axis=-1)
-        bs = jnp.sum(b * s, axis=-1)
-        s2 = jnp.sum(s * s, axis=-1)
-        quad = (rnorm - bs) / sigma2
+        quad = (rnorm - jnp.sum(b * s, axis=-1)) / sigma2
         logdet = logdet_m + 2.0 * jnp.log(sigmas)[:, None] * (d_obs[None, :] - k)
         llks = -0.5 * (quad + logdet + LN_2PI * d_obs[None, :])
-        s3 = s.transpose(2, 0, 1)                                 # (k, M, B)
-        SM3v = SM.transpose(2, 0, 1)                              # (q, M, B)
+    bs = jnp.sum(b * s, axis=-1)
+    s2 = jnp.sum(s * s, axis=-1)
+    s3 = s.transpose(2, 0, 1)                                     # (k, M, B)
+    SM3v = SM.transpose(2, 0, 1)                                  # (q, M, B)
 
     # responsibilities (mix.rs:289-295) and the mixture llk — same pass.
     joint = llks + log_weights[:, None]                           # (M, B)
@@ -407,40 +362,17 @@ def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
     llk_mix = jnp.sum(w * lse)
     resp = post * w[None, :]                                      # (M, B)
 
-    # responsibility-weighted M-step statistics, all lane-major matmuls.
+    # responsibility-weighted M-step statistics
     srw = (s3 * resp[None, :, :]).reshape(k * M, B)
     c1 = lax.dot_general(srw, md0, (((1,), (0,)), ((), ())))      # (kM, D)
     c2 = lax.dot_general(srw, mask_f, (((1,), (0,)), ((), ())))   # (kM, D)
     c2t = jnp.transpose(c2.reshape(k, M, D_loc), (1, 2, 0))       # (M, D, k)
     cross = jnp.transpose(c1.reshape(k, M, D_loc), (1, 2, 0)) - dm[:, :, None] * c2t
-    if use_kernel and config.s_slab_stats:
-        # Contract only the valid block-wedge slabs of the fullt SM
-        # (mix_em_finalize's tril + tril^T reconstruction reads exactly
-        # these entries); accumulated PACKED in the scan carry, unpacked
-        # to the (M, D, k*k) layout once after the scan in mix_em_stats.
-        SM4 = SM3v.reshape(k, k, M, B)
-        S = jnp.concatenate(
-            [
-                jnp.transpose(
-                    lax.dot_general(
-                        (SM4[r0:r1, :cw] * resp[None, None, :, :]).reshape(
-                            (r1 - r0) * cw * M, B
-                        ),
-                        mask_f,
-                        (((1,), (0,)), ((), ())),
-                    ).reshape((r1 - r0) * cw, M, D_loc),
-                    (1, 2, 0),
-                )
-                for r0, r1, cw in ml._sm_slabs(k)
-            ],
-            axis=2,
-        )
-    else:
-        SMw = (SM3v * resp[None, :, :]).reshape(q * M, B)
-        S = jnp.transpose(
-            lax.dot_general(SMw, mask_f, (((1,), (0,)), ((), ()))).reshape(q, M, D_loc),
-            (1, 2, 0),
-        )
+    SMw = (SM3v * resp[None, :, :]).reshape(q * M, B)
+    S = jnp.transpose(
+        lax.dot_general(SMw, mask_f, (((1,), (0,)), ((), ()))).reshape(q, M, D_loc),
+        (1, 2, 0),
+    )
     # clamp: epsilon-negative in f32 iff |dev|^2 ~ 0 (see dense_fast)
     dev_sq = jnp.sum(resp * jnp.maximum(rnorm - bs - sigma2 * s2, 0.0), axis=-1)
     rm = lax.dot_general(resp, mask_f, (((1,), (0,)), ((), ())))  # (M, D)
@@ -456,16 +388,13 @@ def _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2, sigmas,
 
 
 def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w,
-               use_kernel: bool, axis_model: Optional[str]):
+               route: str, axis_model: Optional[str]):
     """One block: per-component posteriors + responsibilities + weighted
     M-step contributions for every component.  (The model-axis-sharded
     form; the unsharded fast path is :func:`_block_mix_fast`.)"""
     M, D_loc, k = Cs.shape
-    # EM_WANT="fullt": SM's upper triangle is kernel garbage (halves the SM
-    # FMAs); the S statistic below is linear in SM, and mix_em_finalize
-    # restores symmetry of the summed S before any consumer reads it.
     R, llks, s, SM, sq_b = _block_post(
-        Cs, CCs, means, sigmas, datab, mask_f, use_kernel, axis_model, EM_WANT
+        Cs, CCs, means, sigmas, datab, mask_f, route, axis_model, EM_WANT
     )
 
     # responsibilities (mix.rs:289-295) and the mixture llk — same pass.
@@ -491,16 +420,11 @@ def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w,
                       resp_sum, resp_max, llk_mix)
 
 
-def _mix_prep(Cs, data, block_size, axis_model, want="full"):
+def _mix_prep(Cs, data, axis_model, want):
     M, D_loc, k = Cs.shape
     dtype = ml.compute_dtype(data.dtype, Cs.dtype)
     CCs = (Cs[:, :, :, None] * Cs[:, :, None, :]).reshape(M, D_loc, k * k)
-    # gate on the PER-VERB kernel ceiling: lighter variants reach higher k
-    # (llk 456 / states 320 vs full 264), and past the ceiling the fallback
-    # body's _use_blocked(want) check must agree with this gate or k in the
-    # gap would silently take the XLA batched-Cholesky cliff.
-    use_kernel = ml._use_kernel(k, block_size, dtype, axis_model, want)
-    return dtype, CCs, use_kernel
+    return dtype, CCs, ml.spd_route(k, dtype, want, axis_model is not None)
 
 
 def _pat_prep(Cs, means, sigmas, data, patterns):
@@ -513,91 +437,31 @@ def _pat_prep(Cs, means, sigmas, data, patterns):
     return dtype, tables, center
 
 
-def _lane_major_prep(Cs, means, CCs):
-    """Loop-invariant operands pre-transposed so every per-block contraction
-    of the readout fast path produces the kernel's lane-major (.., M, B)
-    layout directly — no (M, B, D) temporaries, no post-matmul transposes.
-
-    Per-component centerings are expressed relative to the component-average
-    mean (data is centered ONCE on mean0, then corrected per component), so
-    the expanded |r|^2 quadratic's cancellation error scales with the
-    between-component mean spread, not with the raw data magnitude."""
-    M, D_loc, k = Cs.shape
-    mean0 = jnp.mean(means, axis=0)                   # (D,)
-    dm = means - mean0                                # (M, D)
-    return (
-        CCs.transpose(2, 0, 1),                       # (k^2, M, D)
-        Cs.transpose(2, 0, 1),                        # (k,   M, D)
-        (Cs * dm[:, :, None]).transpose(2, 0, 1),     # (k,   M, D)
-        mean0,
-        dm,
-    )
-
-
-def _block_llks_kernel(lane_prep, means, sigmas, datab, mask_f,
-                       axis_model: Optional[str], want: str):
-    """llk/states/infer fast path for one block: three shared MXU matmuls
-    feed the fused SPD kernel with all M components stacked on the lane
-    axis — no (M, B, D) temporary (the lane-major layout that won +23% on
-    the EM block, applied to the readout verbs too).
+def _block_llks_kernel(center, Cs, CCs, sigmas, datab, mask_f, want: str):
+    """llk/states/infer kernel route for one block (unsharded D): shared
+    matmuls against ``mask*(data - mean0)`` and ``mask`` (the _center_prep
+    trick) feed one kernel call over all M*B problems — no (M, B, D)
+    centred-data temporary.
     Returns (llks (M, B), s (M, B, k) or None, Sig (M, B, k, k) or None)."""
-    from . import kernels
-
-    from ..config import config
-
-    CC_km, Cs_km, Cdm_km, mean0, dm = lane_prep
-    k, M, _ = Cs_km.shape
-    B = datab.shape[0]
+    mean0, dm, Cdm = center
+    M, _, k = Cs.shape
     md0 = mask_f * (datab - mean0)                                # (B, D)
-    dims = (((2,), (1,)), ((), ()))
-    if config.g_slab_inputs and k % 8 == 0 and k > 16:
-        # wedge-slab Gram (kernels.g_slabs), as in _block_mix_fast; psum
-        # runs per slab so model-sharded readouts stay correct.
-        CC4 = CC_km.reshape(k, k, M, CC_km.shape[-1])
-        G_arg = tuple(
-            _psum(
-                lax.dot_general(CC4[r0:r1, r0:], mask_f, (((3,), (1,)), ((), ()))),
-                axis_model,
-            ).reshape(r1 - r0, k - r0, M * B)
-            for r0, r1 in kernels.g_slabs(k)
-        )
-    else:
-        G3 = _psum(lax.dot_general(CC_km, mask_f, dims), axis_model)  # (k^2,M,B)
-        G_arg = G3.reshape(k, k, M * B)
     # b_m = C_m^T (mask (y - mu_m)) = C_m^T md0 - C_m^T (mask dm_m)
-    b3 = _psum(
-        lax.dot_general(Cs_km, md0, dims) - lax.dot_general(Cdm_km, mask_f, dims),
-        axis_model,
-    )                                                             # (k, M, B)
+    b = (jnp.einsum("bd,mdk->mbk", md0, Cs)
+         - jnp.einsum("bd,mdk->mbk", mask_f, Cdm))                # (M, B, k)
+    G = jnp.einsum("bd,mdq->mbq", mask_f, CCs).reshape(M, -1, k, k)
     # |mask (y - mu_m)|^2 = |md0|^2 - 2 md0 . dm_m + mask . dm_m^2.  These
     # two (B, D) x (D, M) products are tiny but feed the llk quadratic form
     # directly, so they run at full f32 precision regardless of the global
-    # matmul-precision setting (bf16 operand rounding here costs ~nats).
-    rd2 = jnp.sum(md0 * md0, axis=-1)                             # (B,)
+    # matmul-precision setting (reduced-precision operands cost ~nats here).
     hp = jax.lax.Precision.HIGHEST
+    rd2 = jnp.sum(md0 * md0, axis=-1)                             # (B,)
     mdm = jnp.matmul(md0, dm.T, precision=hp)                     # (B, M)
     m2 = jnp.matmul(mask_f, (dm * dm).T, precision=hp)            # (B, M)
-    rnorm = _psum(rd2[:, None] - 2.0 * mdm + m2, axis_model).T    # (M, B)
-    d_obs = _psum(jnp.sum(mask_f, axis=-1), axis_model)           # (B,)
-
-    sig_lane = jnp.repeat(sigmas, B)[None, :]
-    dob_lane = jnp.tile(d_obs, M)[None, :]
-    out = kernels.spd_estep(
-        sig_lane, G_arg, b3.reshape(k, M * B),
-        rnorm.reshape(1, M * B), dob_lane, want=want,
-    )
-    if want == "llk":
-        (llk_l,) = out
-        return llk_l.reshape(M, B), None, None
-    if want == "infer":
-        s_t, Sig3, llk_l, _ = out
-        return (
-            llk_l.reshape(M, B),
-            s_t.reshape(k, M, B).transpose(1, 2, 0),
-            Sig3.reshape(k, k, M, B).transpose(2, 3, 0, 1),
-        )
-    s_t, llk_l = out
-    return llk_l.reshape(M, B), s_t.reshape(k, M, B).transpose(1, 2, 0), None
+    rnorm = (rd2[:, None] - 2.0 * mdm + m2).T                     # (M, B)
+    d_obs = jnp.sum(mask_f, axis=-1)                              # (B,)
+    llks, s, Sig, _ = _kernel_mix(G, b, rnorm, d_obs, sigmas, want)
+    return llks, s, Sig
 
 
 def mix_llks(Cs, means, sigmas, data, mask, *, block_size: int,
@@ -624,19 +488,19 @@ def mix_llks(Cs, means, sigmas, data, mask, *, block_size: int,
         )
         return flatten(out)
 
-    dtype, CCs, use_kernel = _mix_prep(Cs, data, block_size, axis_model, "llk")
-    lane_prep = _lane_major_prep(Cs, means, CCs) if use_kernel else None
+    dtype, CCs, route = _mix_prep(Cs, data, axis_model, "llk")
+    center = _center_prep(Cs, means) if route == "kernel" else None
 
     def body(_, fresh, datab, maskb):
-        if use_kernel:
+        if route == "kernel":
             llks, _, _ = _block_llks_kernel(
-                lane_prep, means, sigmas, datab.astype(dtype),
-                maskb.astype(dtype), axis_model, "llk",
+                center, Cs, CCs, sigmas, datab.astype(dtype),
+                maskb.astype(dtype), "llk",
             )
         else:
             _, llks, _, _, _ = _block_post(
                 Cs, CCs, means, sigmas, datab.astype(dtype), maskb.astype(dtype),
-                False, axis_model, "llk",
+                route, axis_model, "llk",
             )
         return None, llks.T                                   # (B, M)
 
@@ -670,22 +534,19 @@ def mix_infer(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
             n, block_size, (data, mask, pidx), body_pat, None
         )
     else:
-        dtype, CCs, use_kernel = _mix_prep(Cs, data, block_size, axis_model,
-                                           "infer")
-        lane_prep = _lane_major_prep(Cs, means, CCs) if use_kernel else None
+        dtype, CCs, route = _mix_prep(Cs, data, axis_model, "infer")
+        center = _center_prep(Cs, means) if route == "kernel" else None
 
         def body(_, fresh, datab, maskb):
-            if use_kernel:
-                # lane-major block: no (M, B, D) centered-data temporary
-                # (round 3; the same rework that won +23% on the EM block)
+            if route == "kernel":
                 llks, s, Sig = _block_llks_kernel(
-                    lane_prep, means, sigmas, datab.astype(dtype),
-                    maskb.astype(dtype), axis_model, "infer",
+                    center, Cs, CCs, sigmas, datab.astype(dtype),
+                    maskb.astype(dtype), "infer",
                 )
             else:
                 _, llks, s, Sig, _ = _block_post(
                     Cs, CCs, means, sigmas, datab.astype(dtype), maskb.astype(dtype),
-                    False, axis_model, "infer",
+                    route, axis_model, "infer",
                 )
                 Sig = Sig.reshape(M, -1, k, k)
             return None, (llks.T, jnp.moveaxis(s, 1, 0), jnp.moveaxis(Sig, 1, 0))
@@ -712,12 +573,10 @@ def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
     n = data.shape[0]
     if pidx is not None:
         dtype, tables, center = _pat_prep(Cs, means, sigmas, data, patterns)
-        use_kernel = False
-        lane_prep = None
+        route = None
     else:
-        dtype, CCs, use_kernel = _mix_prep(Cs, data, block_size, axis_model,
-                                           "states")
-        lane_prep = _lane_major_prep(Cs, means, CCs) if use_kernel else None
+        dtype, CCs, route = _mix_prep(Cs, data, axis_model, "states")
+        center = _center_prep(Cs, means) if route == "kernel" else None
 
     def body(_, fresh, datab, maskb, pb=None):
         datab = datab.astype(dtype)
@@ -726,13 +585,13 @@ def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
             _, llks, s, _, _, _, _ = _block_post_pat(
                 Cs, means, sigmas, tables, datab, mask_f, pb, center=center
             )
-        elif use_kernel:
+        elif route == "kernel":
             llks, s, _ = _block_llks_kernel(
-                lane_prep, means, sigmas, datab, mask_f, axis_model, "states"
+                center, Cs, CCs, sigmas, datab, mask_f, "states"
             )
         else:
             _, llks, s, _, _ = _block_post(
-                Cs, CCs, means, sigmas, datab, mask_f, False, axis_model, "states"
+                Cs, CCs, means, sigmas, datab, mask_f, route, axis_model, "states"
             )
         joint = llks + log_weights[:, None]                   # (M, B)
         post = jnp.exp(joint - _logsumexp0(joint)[None, :])
@@ -767,16 +626,16 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
     M, D_loc, k = Cs.shape
     dtype = ml.compute_dtype(data.dtype, Cs.dtype)
     CCs = (Cs[:, :, :, None] * Cs[:, :, None, :]).reshape(M, D_loc, k * k)
-    use_kernel = ml._use_kernel(k, block_size, dtype, axis_model, "fullt")
+    route = ml.spd_route(k, dtype, EM_WANT, axis_model is not None)
 
-    # config.mix_exact_rnorm: the lane-major fast block's expanded rnorm
+    # config.mix_exact_rnorm: the fast block's expanded rnorm
     # quadratic cancels ~O(separation^2); the R-materializing _block_mix
     # computes it from the actual residual (see _block_mix_fast docstring).
     use_fast = axis_model is None and not config.mix_exact_rnorm
     if use_fast:
         # Loop-invariant operands of the fast block, hoisted: centering
         # pieces and the (.., M, D)-flattened transposes that make every
-        # per-block contraction land in the kernel's lane-major layout.
+        # per-block contraction one plain matmul.
         mean0, dm, Cdm = _center_prep(Cs, means)
         Cs_t = jnp.transpose(Cs, (2, 0, 1)).reshape(k * M, D_loc)
         Cdm_t = jnp.transpose(Cdm, (2, 0, 1)).reshape(k * M, D_loc)
@@ -790,26 +649,20 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
         if use_fast:
             new = _block_mix_fast(Cs, Cs_t, Cdm_t, CCs_t, mean0, dm, dm2,
                                   sigmas, log_weights, datab.astype(dtype),
-                                  maskb.astype(dtype), w, use_kernel)
+                                  maskb.astype(dtype), w, route)
         else:
             new = _block_mix(Cs, CCs, means, sigmas, log_weights,
                              datab.astype(dtype), maskb.astype(dtype),
-                             w, use_kernel, axis_model)
+                             w, route, axis_model)
         big = (acc[0] + new.cross, acc[1] + new.S)
         small = (new.square_error, new.dev_sq, new.total_dev, new.totals,
                  new.resp_sum, new.resp_max, new.llk)
         return big, small
 
-    # config.s_slab_stats (fast kernel path only): the scan carries S
-    # slab-PACKED (ml._sm_slabs width) and unpacks once after the scan.
-    slab = use_fast and use_kernel and config.s_slab_stats
-    s_width = ml._s_packed_width(k) if slab else k * k
-    zero = (jnp.zeros((M, D_loc, k), dtype), jnp.zeros((M, D_loc, s_width), dtype))
+    zero = (jnp.zeros((M, D_loc, k), dtype), jnp.zeros((M, D_loc, k * k), dtype))
     (cross, S), small, _ = _scan_blocks(
         n, block_size, (data, mask, weights), body, zero
     )
-    if slab:
-        S = ml._s_unpack(S.reshape(M * D_loc, s_width), k).reshape(M, D_loc, k * k)
     (square_error, dev_sq, total_dev, totals, resp_sum, llk) = (
         jnp.sum(x, axis=0)
         for x in (small[0], small[1], small[2], small[3], small[4], small[6])
@@ -823,7 +676,7 @@ def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
                      weights, *, block_size: int) -> MixEMStats:
     """Pattern-deduplicated fused mixture EM statistics: all factorizations
     collapse to the M x P tables, the ``S`` statistic is grouped per pattern
-    (per-pattern responsibility-weighted outer-product sums via a one-hot MXU
+    (per-pattern responsibility-weighted outer-product sums via a one-hot
     matmul when P <= D, then one (P, D) contraction), and ``square_error``
     and ``totals`` become P-sized sums.  Algebraically identical to
     :func:`mix_em_stats`; a fully-observed dataset is the P = 1 case (the
@@ -896,7 +749,7 @@ def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
         # no two-matmul factoring; instead of materializing the full
         # (M, B, k^2) outer_s (268 MB/block at k=32, M=8 — the round-2
         # block-size cap), build it in (row-range, col-width) pieces so the
-        # temporary stays ~<=64 MB and each piece is still one MXU matmul.
+        # temporary stays ~<=64 MB and each piece is still one matmul.
         # config.s_slab_stats narrows each row range's columns to the
         # ml._sm_slabs wedge (cw = r1): only the entries mix_em_finalize's
         # tril + tril^T reconstruction reads are ever computed (~0.55x the
@@ -1035,33 +888,26 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *,
     if axis_model is None:
         M, D_loc, k = Cs.shape
         rows_pre = None
-        # The SPD kernel cannot run under vmap, so the M x D_loc per-row
-        # solves are flattened into ONE kernel call here and handed to the
-        # vmapped finalize via transform_rows (same scaled statistics).
-        if k > 0 and ml._use_kernel(k, 128, Cs.dtype, None, "states"):
+        # The kernel and the blocked inverse run outside the vmapped
+        # finalize: the M x D_loc per-row solves are flattened into ONE call
+        # here and handed to it via transform_rows (same scaled statistics).
+        route = ml.spd_route(k, Cs.dtype, "rows", False)
+        if route != "xla":
             S_sc = stats.S * inv_scale[:, None, None]
-            cr_sc = stats.cross * inv_scale[:, None, None]
-            # The fused EM path accumulates S with want="fullt" (upper
-            # triangle garbage); the SPD kernel reads the upper wedge, so
-            # restore symmetry from the valid lower triangle first.
+            cr_sc = (stats.cross * inv_scale[:, None, None]).reshape(M * D_loc, k)
+            # S's upper triangle is unreliable on the pattern paths
+            # (config.s_slab_stats); restore symmetry from the lower one.
             S_sq = S_sc.reshape(M * D_loc, k, k)
             S_sq = jnp.tril(S_sq) + jnp.swapaxes(jnp.tril(S_sq, -1), -1, -2)
-            rows_pre = ml._kernel_rows_solve(
-                S_sq, cr_sc.reshape(M * D_loc, k), transformation_precision
-            ).reshape(M, D_loc, k)
-        elif k > 0 and ml._use_blocked(k, 128, Cs.dtype, None, "states"):
-            # past the kernel ceiling: blocked Schur inverse (block_spd);
-            # singular rows go non-finite and take the keep-old-row
-            # fallback inside em_finalize, exactly like the LU path.
-            from . import block_spd
+            if route == "kernel":
+                rows_pre = ml._kernel_rows_solve(S_sq, cr_sc, transformation_precision)
+            else:
+                from . import block_spd
 
-            S_sc = stats.S * inv_scale[:, None, None]
-            cr_sc = stats.cross * inv_scale[:, None, None]
-            S_sq = S_sc.reshape(M * D_loc, k, k)
-            S_sq = jnp.tril(S_sq) + jnp.swapaxes(jnp.tril(S_sq, -1), -1, -2)
-            rows_pre = block_spd.solve_psd(
-                S_sq, cr_sc.reshape(M * D_loc, k), transformation_precision
-            ).reshape(M, D_loc, k)
+                # singular rows go non-finite and take the keep-old-row
+                # fallback inside em_finalize, exactly like the LU path
+                rows_pre = block_spd.solve_psd(S_sq, cr_sc, transformation_precision)
+            rows_pre = rows_pre.reshape(M, D_loc, k)
         if rows_pre is not None:
             new_Cs, new_means, new_sigmas = jax.vmap(finalize_vmapped)(
                 Cs, means, sigmas, stats.cross, stats.S, stats.square_error,

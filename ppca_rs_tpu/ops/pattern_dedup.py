@@ -10,16 +10,14 @@ its mask then collapses to a P-sized table:
   noise-update trace ``tr(G_p Sigma_p)`` are computed ONCE per pattern
   (`ppca/src/ppca_model.rs:195-208` pays all of this per sample);
 * per-sample work shrinks to the mask-weighted projections ``b_n = C^T r_n``
-  (one MXU matmul per block) and a batched (k, k) @ (k,) mat-vec against the
+  (one matmul per block) and a batched (k, k) @ (k,) mat-vec against the
   gathered ``Sigma_{p(n)}`` — no per-sample factorization at all;
 * the M-step's dominant ``(D, B) x (B, k^2)`` second-moment matmul is grouped
   by pattern when ``P <= D``: per-pattern sums of ``w s s^T`` via a one-hot
-  MXU matmul, then a single ``(D, P) x (P, k^2)`` contraction.
+  matmul, then a single ``(D, P) x (P, k^2)`` contraction.
 
-The pattern tables themselves are built by the fused Pallas SPD kernel when
-available (with ``b = 0`` the kernel's second-moment output IS
-``sigma^2 M^{-1}`` and its llk output encodes the log-determinant), or by
-batched XLA Cholesky otherwise — P is small either way.
+The pattern tables themselves are built by batched XLA Cholesky: P is small,
+and the factorization runs once per EM iteration.
 
 Pattern *detection* is host-side (``Dataset.pattern_info``): device-side
 ``packbits`` over the mask, ``np.unique`` on the packed rows.
@@ -43,21 +41,12 @@ from .masked_linalg import LN_2PI, _scan_blocks
 
 
 class PatternTables(NamedTuple):
-    """Per-pattern E-step quantities (leading axis P, possibly lane-padded)."""
+    """Per-pattern E-step quantities (leading axis P)."""
 
     Sigma: jax.Array    # (P, k*k) posterior covariance sigma^2 M_p^{-1}
     pat_llk: jax.Array  # (P,) the mask-only llk term:
                         #      -0.5 (logdet M_p + 2 log sigma (d_p - k) + LN_2PI d_p)
     sq: jax.Array       # (P,) tr(G_p Sigma_p)  (the noise-update term)
-
-
-def _use_kernel_for_tables(k: int, dtype) -> bool:
-    from ..config import config
-    from . import kernels
-
-    if not config.use_pallas or jax.default_backend() != "tpu":
-        return False
-    return kernels.supported(k, kernels.LANE, dtype)
 
 
 def compute_tables(C: jax.Array, sigma: jax.Array, patterns_f: jax.Array) -> PatternTables:
@@ -70,21 +59,6 @@ def compute_tables(C: jax.Array, sigma: jax.Array, patterns_f: jax.Array) -> Pat
     G = patterns_f @ CC                                   # (P, k*k)
     d_obs = jnp.sum(patterns_f, axis=-1)                  # (P,)
     sigma2 = sigma * sigma
-
-    if _use_kernel_for_tables(k, dtype):
-        from . import kernels
-
-        lane = kernels.LANE
-        Ppad = -(-P // lane) * lane
-        G3 = jnp.pad(G, ((0, Ppad - P), (0, 0))).reshape(Ppad, k, k).transpose(1, 2, 0)
-        zeros_b = jnp.zeros((k, Ppad), dtype)
-        zeros_r = jnp.zeros((1, Ppad), dtype)
-        dob = jnp.pad(d_obs, (0, Ppad - P))[None, :]
-        # With b = 0 the kernel returns s = 0, SM = sigma^2 M^{-1},
-        # llk = the pure mask term, and sq = tr(G Sigma) directly.
-        _, SM3, llk, sq = kernels.spd_estep(sigma, G3, zeros_b, zeros_r, dob)
-        Sigma = SM3.reshape(k * k, Ppad).T[:P]
-        return PatternTables(Sigma, llk[0, :P], sq[0, :P])
 
     M = G.reshape(P, k, k) + sigma2 * jnp.eye(k, dtype=dtype)
     L = jnp.linalg.cholesky(M)
@@ -101,9 +75,9 @@ def compute_tables(C: jax.Array, sigma: jax.Array, patterns_f: jax.Array) -> Pat
 
 
 # The per-sample (B, k*k) Sigma gather costs ~2 * 4 * k^2 bytes/sample of
-# HBM traffic (write + re-read; 32 KB/sample at k=64 f32 — measured as the
-# dominant cost of the pattern e-step).  Below this P * k bound the
-# all-patterns candidate matmul (one (B, k) x (k, P*k) MXU contraction +
+# device-memory traffic (write + re-read; 32 KB/sample at k=64 f32).  Below
+# this P * k bound the all-patterns candidate matmul (one (B, k) x (k, P*k)
+# contraction +
 # a (B, 1, k) row gather; temp traffic 4 * P * k bytes/sample) is cheaper.
 _SALL_MAX_PK = 4096
 
@@ -119,7 +93,7 @@ def _block_states_llk(C, mean, sigma, tables: PatternTables, datab, mask_f, pidx
     b = R @ C                                             # (B, k)
     if config.pat_grouped_estep and 0 < P * k <= _SALL_MAX_PK:
         # s_n = Sigma_{p(n)} b_n / sigma^2 via the candidates for ALL
-        # patterns in one MXU matmul (Sigma_p is symmetric, so the
+        # patterns in one matmul (Sigma_p is symmetric, so the
         # (k, P*k) right operand is just the table re-laid-out), then a
         # contiguous per-row gather of the winning k-vector.
         W = tables.Sigma.reshape(P, k, k).transpose(1, 0, 2).reshape(k, P * k)
@@ -197,7 +171,7 @@ def em_stats(C, mean, sigma, data, mask, pidx, patterns, weights, *,
     Grouped-by-pattern pieces (computed once per pattern / per (P,) table):
       * ``S``'s covariance half: sum_p wsum_p m_pd Sigma_p
       * ``S``'s outer-product half, when P <= D: per-pattern sums of
-        ``w s s^T`` via a one-hot MXU matmul, then one (D, P) x (P, k^2)
+        ``w s s^T`` via a one-hot matmul, then one (D, P) x (P, k^2)
       * ``square_error`` = sum_p wsum_p tr(G_p Sigma_p)
       * ``totals``       = sum_p wsum_p m_pd
     """
@@ -212,7 +186,8 @@ def em_stats(C, mean, sigma, data, mask, pidx, patterns, weights, *,
     group_outer = P <= D  # one-hot grouping beats the direct (D,B)x(B,k^2)
     # config.s_slab_stats: build only the ml._sm_slabs tril wedge of the
     # per-sample outer s s^T (em_finalize reads tril of S only) — ~0.55x
-    # the outer VPU work, HBM temp, and Souter matmul flops at k=64.  The
+    # the outer elementwise work, temporary, and Souter matmul flops at
+    # k=64.  The
     # scan carries Souter PACKED; S is unpacked once after assembly.
     slab = config.s_slab_stats and k > 0
     grouped = config.pat_grouped_estep
@@ -337,14 +312,11 @@ def em_stats_sorted(C, mean, sigma, data_sorted, weights_sorted, patterns,
         pays 2*P*k^2 for the all-patterns candidates matmul (or a
         32 KB/sample gather);
       * the per-pattern outer statistic is a plain segment Gram
-        ``(w s)^T s`` (2k^2) instead of the one-hot contraction whose MXU
-        cost is 2 * q * max(P, 128) effective;
+        ``(w s)^T s`` (2k^2) instead of the one-hot contraction (2 * q * P);
       * ``mask^T sw`` corrections group per segment for free (psw), and
         the residual identities (rnorm/b.s/|s|^2) are unchanged.
 
-    Both pattern paths measured MXU-FLOP-BOUND on the v5e (the seg_gram
-    dead end, docs/DESIGN.md), so this targets the binding constraint:
-    per-sample matmul flops drop from ~2(D + Pk + 128q/k)k to ~2(2D + 2k)k
+    Per-sample matmul flops drop from ~2(D + Pk + Pq/k)k to ~2(2D + 2k)k
     (the data pass now also carries the cross matmul per segment).
     Everything is an exact reordering of :func:`em_stats`'s sums — f64
     parity is pinned by tests/test_pattern_dedup.py.

@@ -5,8 +5,8 @@ blocked reductions in ``jax.shard_map`` over a ('data', 'model') mesh:
 
 * every device runs the same blocked scan over its local rows (and local
   columns when the model axis is used),
-* EM sufficient statistics are combined with ``psum`` over ICI — the
-  TPU-native equivalent of the reference's rayon reduces (SURVEY.md §2.5),
+* EM sufficient statistics are combined with ``psum`` across devices —
+  the equivalent of the reference's rayon reduces (SURVEY.md §2.5),
 * parameter finalization runs replicated (it is tiny: k x k solves over D
   rows, model-sharded when D is sharded).
 

@@ -1,10 +1,10 @@
 """Multi-host (multi-process) initialization.
 
 The reference is a single-process shared-memory library (SURVEY.md §2.5);
-its TPU-native equivalent scales across hosts with `jax.distributed`: each
-host owns its local chips, `make_mesh` spans the global device list, and the
-EM's psum reductions ride ICI within a pod slice (DCN only carries the data
-loading).  This module is the thin, standard glue — nothing framework-
+this rebuild scales across hosts with `jax.distributed`: each host owns its
+local devices, `make_mesh` spans the global device list, and the EM's psum
+reductions are the only cross-device traffic besides data loading.  This
+module is the thin, standard glue — nothing framework-
 specific is needed beyond sharding the dataset with `shard_dataset`, because
 the sufficient statistics the EM exchanges are tiny (D x k, D x k^2 per-shard
 partials; see ops/masked_linalg.EMStats).
@@ -13,7 +13,7 @@ Typical multi-host driver::
 
     from ppca_rs_tpu.parallel import distributed, make_mesh, shard_dataset
 
-    distributed.initialize()                  # env-driven (TPU pods auto-detect)
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = make_mesh()                        # global ('data', 'model') mesh
     dataset = shard_dataset(local_dataset, mesh)
     model = PPCATrainer(dataset).train(state_size=..., n_iters=...)
@@ -36,9 +36,9 @@ def initialize(
     process_id: Optional[int] = None,
     **kwargs,
 ) -> None:
-    """Initialize `jax.distributed`.  On TPU pods all arguments are
-    auto-detected from the environment; on other platforms pass the
-    coordinator address and process layout explicitly."""
+    """Initialize `jax.distributed`.  On GPU hosts pass the coordinator
+    address and the process layout explicitly; nothing detects a cluster
+    from the environment there."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

@@ -1,10 +1,10 @@
 """Device mesh construction and dataset sharding.
 
 The reference's parallelism layer is rayon work-stealing over shared memory
-(SURVEY.md §2.5).  The TPU-native equivalent is SPMD over a 2D device mesh:
+(SURVEY.md §2.5).  The equivalent here is SPMD over a 2D device mesh:
 
 * ``data`` axis — samples (N) are sharded; EM sufficient statistics are
-  psum-reduced over ICI (this replaces every rayon ``par_iter().reduce``:
+  psum-reduced across devices (this replaces every rayon ``par_iter().reduce``:
   `ppca_model.rs:281-293,328-358`, `dataset.rs:208-214`).
 * ``model`` axis — optional tensor-parallel sharding of the output dimension
   D (rows of C, mean, and columns of the data).  The only cross-shard

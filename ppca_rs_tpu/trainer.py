@@ -2,7 +2,7 @@
 
 Same API and metric semantics as the reference trainers (llk/aic/bic per
 iteration, optional warm start and prior, final ``to_canonical``), with two
-TPU-era upgrades:
+upgrades:
 
 * the per-iteration log-likelihood is computed in the *same* fused device
   pass as the EM update (the reference makes two passes over the data per

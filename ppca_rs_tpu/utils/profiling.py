@@ -1,7 +1,7 @@
 """Profiling / tracing hooks.
 
 The reference has no tracing (SURVEY.md §5 — its closest artifact is
-per-iteration metric printing).  TPU-native equivalent: a thin wrapper over
+per-iteration metric printing).  The equivalent here: a thin wrapper over
 ``jax.profiler`` so any training or inference region can be captured and
 inspected with TensorBoard/XProf, plus a simple wall-clock timer used by the
 trainers' callbacks.

@@ -2,7 +2,7 @@
 
 Implements the reference's math *directly from the formulas* with explicit
 per-sample loops and materialized masked covariance matrices — no Woodbury or
-determinant-lemma shortcuts.  This is the parity anchor: the TPU framework's
+determinant-lemma shortcuts.  This is the parity anchor: the framework's
 mask-weighted dense algebra must agree with this to f64 tolerance, the same
 way the Rust reference's tricks agree with naive dense algebra.
 

@@ -1,15 +1,12 @@
 """Blocked Schur-complement inversion (ops/block_spd.py) — the size-generic
-large-k path (`output_covariance.rs:72-121` is unbounded in k; past the
-Pallas kernel's VMEM ceiling this path keeps TPU inference MXU-bound).
+large-k route (`output_covariance.rs:72-121` is unbounded in k).
 
-CPU coverage: the recursion against numpy (f64), the Pallas base case in
-interpret mode (f32), and the masked_linalg routing (``_use_blocked``
-forced on) against the default XLA path.
+CPU coverage: the recursion against numpy (f64), and the masked_linalg
+routing (``spd_route`` forced to "blocked") against the default XLA path.
 """
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,37 +45,6 @@ def test_recursion_matches_numpy(rng, B, k, base):
     np.testing.assert_allclose(np.asarray(ld), ref_ld, rtol=1e-10)
 
 
-def test_kernel_base_interpret(rng):
-    """The Pallas base case (want="infer" with sigma^2 = 1, G = M - I, and
-    the llk -> logdet fold) returns the exact inverse + logdet, including
-    the identity batch padding (B not a lane multiple)."""
-    B, k = 5, 24
-    M = _spd(rng, B, k, dtype=np.float32)
-    Minv, ld = block_spd.base_inv_logdet_kernel(jnp.asarray(M), interpret=True)
-    M64 = M.astype(np.float64)
-    np.testing.assert_allclose(
-        np.asarray(Minv), np.linalg.inv(M64), rtol=5e-5, atol=5e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(ld), np.linalg.slogdet(M64)[1], rtol=1e-4, atol=1e-4
-    )
-
-
-def test_recursion_with_kernel_base_interpret(rng):
-    """Multi-level recursion on top of the interpret-mode Pallas base —
-    the exact composition the TPU runs at k > max_k."""
-    B, k = 2, 36
-    M = _spd(rng, B, k, dtype=np.float32)
-    Minv, ld = block_spd.inv_logdet(jnp.asarray(M), base=16, interpret=True)
-    M64 = M.astype(np.float64)
-    np.testing.assert_allclose(
-        np.asarray(Minv), np.linalg.inv(M64), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(ld), np.linalg.slogdet(M64)[1], rtol=1e-4, atol=1e-3
-    )
-
-
 def test_singular_matrix_stays_per_sample(rng):
     """A singular matrix in the batch NaNs/infs out only its own entry —
     the neighboring samples' inverses stay exact (the keep-old-row /
@@ -96,10 +62,9 @@ def test_singular_matrix_stays_per_sample(rng):
 
 
 def _force_blocked(monkeypatch, base):
-    """Route masked_linalg through the blocked path on CPU: kernel off,
-    blocked on, recursion exercised via a small base."""
-    monkeypatch.setattr(ml, "_use_kernel", lambda *a, **kw: False)
-    monkeypatch.setattr(ml, "_use_blocked", lambda *a, **kw: True)
+    """Route masked_linalg through the blocked path on CPU, recursion
+    exercised via a small base."""
+    monkeypatch.setattr(ml, "spd_route", lambda *a, **kw: "blocked")
     monkeypatch.setattr(
         block_spd, "inv_logdet", functools.partial(block_spd.inv_logdet, base=base)
     )
@@ -210,8 +175,7 @@ def test_em_finalize_blocked_solve(rng, monkeypatch):
     )
     ref = ml.em_finalize(C_old, mean, sig, stats, transformation_precision=0.0)
 
-    monkeypatch.setattr(ml, "_use_kernel", lambda *a, **kw: False)
-    monkeypatch.setattr(ml, "_use_blocked", lambda *a, **kw: True)
+    monkeypatch.setattr(ml, "spd_route", lambda *a, **kw: "blocked")
     monkeypatch.setattr(
         block_spd, "inv_logdet", functools.partial(block_spd.inv_logdet, base=8)
     )
@@ -226,12 +190,14 @@ def test_em_finalize_blocked_solve(rng, monkeypatch):
 
 
 def test_block_size_for_shrinks_past_ceiling():
-    """block_size_for caps the block in the blocked large-k regime and is
+    """block_size_for caps the block in the large-k regime and is
     unchanged at kernel-supported state sizes."""
     from ppca_rs_tpu.config import block_size_for, config
+    from ppca_rs_tpu.ops import kernels
 
     assert block_size_for(10**6, 64) == config.block_size
-    assert block_size_for(10**6, 256) == config.block_size
+    assert block_size_for(10**6, kernels.MAX_K) == config.block_size
+    assert block_size_for(10**6, 256) < config.block_size
     big = block_size_for(10**6, 512)
     assert big < config.block_size
     assert big * 512 * 512 * 16 <= (2 << 30)

@@ -104,8 +104,7 @@ def test_dense_training_converges(rng):
 
 
 def test_dense_bf16_storage_matches_f32(rng):
-    """bf16 value storage on the dense path (HBM-read-bound: ~1.8x measured
-    on v5e) is a STORAGE change only — the SAME bf16-representable values
+    """bf16 value storage on the dense path is a STORAGE change only — the SAME bf16-representable values
     stored as bf16 and as f32 must produce near-identical EM results (math
     is f32 both ways).  Also pins the llks d_obs compute-dtype fix (a bf16
     d_obs dragged the weakly-typed LN_2PI constant to bf16, shifting every

@@ -342,8 +342,8 @@ def test_heterogeneous_rides_fused_path(rng):
 
 
 def test_kernel_routed_mix_em_matches_fallback(rng, monkeypatch):
-    """The kernel-routed lane-major fast block == the XLA fallback block,
-    end to end through mix_em_stats, in interpret mode (f32)."""
+    """The kernel-routed fast block == the XLA block, end to end through
+    mix_em_stats, with the kernel in interpret mode (f32)."""
     import functools
 
     import jax.numpy as jnp
@@ -365,7 +365,7 @@ def test_kernel_routed_mix_em_matches_fallback(rng, monkeypatch):
 
     ref = mf.mix_em_stats(Cs, means, sigmas, lw, data, mask, w, block_size=128)
 
-    monkeypatch.setattr(ml, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(ml, "spd_route", lambda *a, **kw: "kernel")
     monkeypatch.setattr(
         kernels, "spd_estep", functools.partial(kernels.spd_estep, interpret=True)
     )
@@ -376,16 +376,7 @@ def test_kernel_routed_mix_em_matches_fallback(rng, monkeypatch):
         return np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
 
     assert rel(got.cross, ref.cross) < 1e-4
-    # S from the kernel block only fills the lower wedge of each (k, k)
-    # square (want="fullt"); compare after symmetrization from the lower
-    # triangle, which is what mix_em_finalize consumes.
-    tril = np.tril(np.ones((k, k)))
-
-    def sym(S):
-        Ssq = np.asarray(S, np.float64).reshape(M, -1, k, k) * tril
-        return Ssq + np.triu(np.swapaxes(Ssq, -1, -2), 1)
-
-    assert rel(sym(got.S), sym(ref.S)) < 1e-4
+    assert rel(got.S, ref.S) < 1e-4
     assert rel(got.square_error, ref.square_error) < 1e-4
     assert rel(got.dev_sq, ref.dev_sq) < 1e-3
     assert rel(got.total_dev, ref.total_dev) < 1e-3
@@ -478,8 +469,8 @@ def test_mix_exact_rnorm_pattern_path(rng):
 
 
 def test_kernel_routed_mix_readouts_match_fallback(rng, monkeypatch):
-    """The lane-major kernel-routed readout blocks (mix_llks / mix_smooth /
-    the round-3 mix_infer) == the XLA fallback paths, in interpret mode."""
+    """The kernel-routed readout blocks (mix_llks / mix_smooth / mix_infer)
+    == the XLA paths, with the kernel in interpret mode."""
     import functools
 
     import jax.numpy as jnp
@@ -502,7 +493,7 @@ def test_kernel_routed_mix_readouts_match_fallback(rng, monkeypatch):
     ref_sm = mf.mix_smooth(*args, block_size=128)
     ref_ex = mf.mix_smooth(*args, block_size=128, extrapolate=True)
 
-    monkeypatch.setattr(ml, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(ml, "spd_route", lambda *a, **kw: "kernel")
     monkeypatch.setattr(
         kernels, "spd_estep", functools.partial(kernels.spd_estep, interpret=True)
     )
@@ -566,69 +557,21 @@ def test_mix_em_stats_pat_s_slab_matches(rng):
                 rtol=1e-9, atol=1e-11, err_msg=name)
 
 
-def test_mix_readouts_g_slab_matches(rng, monkeypatch):
-    """mix_llks / mix_infer through _block_llks_kernel with g_slab_inputs
-    (wedge-slab Gram) == the full-Gram path, interpret mode, k > 16."""
-    import functools
-
-    import jax.numpy as jnp
-    from ppca_rs_tpu.config import config
-    from ppca_rs_tpu.ops import kernels
-    from ppca_rs_tpu.ops import masked_linalg as ml
-    from ppca_rs_tpu.ops import mix_fused as mf
-
-    monkeypatch.setattr(
-        kernels, "spd_estep", functools.partial(kernels.spd_estep, interpret=True)
-    )
-    monkeypatch.setattr(ml, "_use_kernel", lambda *a: True)
-    M, B, D, k = 3, 256, 48, 24
-    Cs = jnp.asarray(rng.normal(size=(M, D, k)), jnp.float32) * 0.5
-    means = jnp.asarray(rng.normal(size=(M, D)), jnp.float32)
-    sigmas = jnp.asarray(0.5 + rng.random(M), jnp.float32)
-    lw = jnp.log(jnp.full((M,), 1.0 / M, jnp.float32))
-    data = jnp.asarray(rng.normal(size=(B, D)), jnp.float32)
-    mask = jnp.asarray(rng.random((B, D)) > 0.4)
-    mask = mask.at[3].set(False)
-    data = jnp.where(mask, data, 0.0)
-
-    monkeypatch.setattr(config, "g_slab_inputs", False)
-    llks_ref = mf.mix_llks(Cs, means, sigmas, data, mask, block_size=128)
-    lp_ref, s_ref, cov_ref = mf.mix_infer(Cs, means, sigmas, lw, data, mask,
-                                          block_size=128)
-    monkeypatch.setattr(config, "g_slab_inputs", True)
-    llks_got = mf.mix_llks(Cs, means, sigmas, data, mask, block_size=128)
-    lp_got, s_got, cov_got = mf.mix_infer(Cs, means, sigmas, lw, data, mask,
-                                          block_size=128)
-
-    np.testing.assert_allclose(np.asarray(llks_got), np.asarray(llks_ref),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(s_got), np.asarray(s_ref),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(cov_got), np.asarray(cov_ref),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(lp_got), np.asarray(lp_ref),
-                               rtol=1e-6, atol=1e-6)
-
-
 def test_mix_readout_gates_use_per_verb_want(rng, monkeypatch):
-    """Regression: _mix_prep must gate the kernel on each verb's own ceiling
-    ('llk' 456 / 'states' 320 vs 'full' 264).  Gating on 'full' left k in
-    (264, 456] llk / (264, 320] states silently on the XLA batched-Cholesky
-    cliff: the kernel gate said no (full ceiling) while the fallback's
-    _use_blocked(want) also said no (below the verb ceiling)."""
-    import jax
+    """Regression: each mixture readout must ask the router for its own
+    variant ('llk' / 'infer' / 'states'), so a per-variant route (the
+    kernel serves some variants and not others) reaches every verb."""
     import jax.numpy as jnp
     from ppca_rs_tpu.ops import masked_linalg as ml
     from ppca_rs_tpu.ops import mix_fused as mf
 
     seen = []
-    real = ml._use_kernel
 
-    def spy(k, block, dtype, axis_model, want="full"):
+    def spy(k, dtype, want, sharded, platform=None):
         seen.append(want)
-        return False  # force the XLA fallback so no kernel runs on CPU
+        return "xla"  # no kernel runs on CPU
 
-    monkeypatch.setattr(ml, "_use_kernel", spy)
+    monkeypatch.setattr(ml, "spd_route", spy)
     M, B, D, k = 2, 32, 8, 3
     Cs = jnp.asarray(rng.normal(size=(M, D, k)), jnp.float32)
     means = jnp.zeros((M, D), jnp.float32)
@@ -641,15 +584,6 @@ def test_mix_readout_gates_use_per_verb_want(rng, monkeypatch):
     mf.mix_infer(Cs, means, sigmas, lw, data, mask, block_size=32)
     mf.mix_smooth(Cs, means, sigmas, lw, data, mask, block_size=32)
     assert seen == ["llk", "infer", "states"], seen
-
-    # and the gates themselves never leave a routing gap on a (simulated)
-    # TPU: for every verb and k, kernel OR blocked must engage.
-    monkeypatch.setattr(ml, "_use_kernel", real)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for want in ("llk", "states", "full", "fullt", "infer"):
-        for kk in (64, 264, 272, 320, 328, 456, 464, 512):
-            assert ml._use_kernel(kk, 8192, jnp.float32, None, want) or \
-                ml._use_blocked(kk, 8192, jnp.float32, None, want), (want, kk)
 
 
 def test_mix_pattern_grouped_estep_matches(rng):

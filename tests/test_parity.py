@@ -1,7 +1,7 @@
 """Numerical parity against the brute-force NumPy reference implementation.
 
 Random masked datasets (including all-masked rows and empty dimensions) are
-run through both the TPU framework and `reference_impl.py` in f64; results
+run through both the framework and `reference_impl.py` in f64; results
 must agree to tight tolerance — llk, posteriors, readouts, and the full EM
 update with and without priors.
 """

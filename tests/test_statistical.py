@@ -96,7 +96,7 @@ def test_extrapolation_accuracy(rng):
 
 
 def test_f32_pipeline(rng):
-    """The whole verb surface works in f32 (TPU dtype) with sane tolerances
+    """The whole verb surface works in f32 (the accelerator dtype) with sane tolerances
     vs f64 (SURVEY.md §7 hard-parts: numerics parity in f32)."""
     C = rng.normal(size=(8, 2))
     mean = rng.normal(size=8)

@@ -1,9 +1,9 @@
 """Time Dataset.pattern_info at the headline shape (N=1M, D=1024, P=32).
 
-Reports the cold call (includes one-time remote compiles of the hash and
+Reports the cold call (includes the one-time compiles of the hash and
 verification programs) and the warm call on a SECOND dataset with the same
-shapes but different contents (the remote runtime caches results per
-(program, operands), so re-detecting the same dataset would be a lie).
+shapes but different contents (detection results are cached on the
+Dataset, so re-detecting the same dataset would time the cache).
 
 Usage: python tools/pattern_detect_bench.py [--n 1000000] [--d 1024] [--p 32]
 """
